@@ -1,0 +1,409 @@
+"""GPU smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero
+without them, and on any failed check. In order it:
+
+ 1. prints the card's name and power limit (``nvidia-smi``);
+ 2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+    and prints the build time and the compiler's register report;
+ 3. for each kernel, makes inputs at the shapes of the main path (a batch
+    of B = 200 edges, so R = 400 vertex rows, at paper width), runs the
+    kernel and its plain PyTorch version on the card, prints their
+    largest difference against the stated tolerance, and times the kernel,
+    the plain version and, where one exists, the single PyTorch call that
+    computes the same function: device time from CUDA-graph replays, and
+    the kernel's time per call issued eagerly from Python;
+ 4. checks, on a small graph, the staged and fused tiers on the card
+    against the reference tier on the CPU;
+ 5. builds a Wikipedia-sized graph (8,227 users, 1,000 items, 157,474
+    edges, 172 edge features) and runs the StreamingEngine over its first
+    50 batches of B = 200 at paper width (f_mem = f_time = f_emb = 100,
+    m_r = 10, k = 4, 128 LUT entries), once per tier: ref, staged, fused.
+    Every step's embeddings and the final vertex state of the kernel tiers
+    are held against the ref tier; every kernel must have launched on its
+    tier's run (the launch counts are zeroed just before each run and read
+    just after);
+ 6. prints each tier's latency/throughput summary;
+ 7. prints one ``{"kernels": [...]}`` line and, last,
+    ``{"ok": true, "device": {...}}``.
+
+The weights are random, drawn from a seeded ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_BATCHES = 50
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# 50 chained steps: each tier rounds its own fp32 sums, and the GRU carries
+# the rounding from step to step
+TIER_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def eager_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Time per call of ``fn`` called back to back from Python: CUDA events
+    around ``iters`` calls. For a small kernel this is the host's cost of
+    issuing the call (wrapper checks, ctypes, launch), not device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, reps: int = 20, iters: int = 20) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed ``iters`` times between CUDA events, so the
+    host's cost of issuing the calls is out of the measurement. Inputs stay
+    the same across calls, so they are warm in the 50 MB L2, as the main
+    path's weights and tables largely are from step to step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (iters * reps)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# per-kernel checks at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases(ops, mp, dev):
+    """Inputs at the shapes of the main path ``mp`` (launch/main_path.py),
+    one case per kernel: name -> (kernel call, plain call, library call or
+    None, bytes, flops)."""
+    rng = np.random.RandomState(0)
+    R, M, Fe, D = 2 * mp.B, mp.WIDTH, mp.GRAPH["f_edge"], mp.WIDTH
+    K, E, WIDTH = mp.K, mp.E, mp.WIDTH
+    F = 2 * M + Fe
+    V = mp.GRAPH["n_users"] + mp.GRAPH["n_items"]
+    NE = mp.GRAPH["n_edges"]
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=dev)
+
+    def f32(*shape, scale=1.0):
+        return t((rng.randn(*shape) * scale).astype(np.float32))
+
+    def used_rows(idx, width):           # rows a gather must read, fp32
+        return int(torch.unique(idx).numel()) * width * 4
+
+    bounds = t(np.concatenate([np.sort(10 ** rng.uniform(0, 7, E - 1)),
+                               [np.inf]]).astype(np.float32))
+    dt = t((10 ** rng.uniform(0, 7, R)).astype(np.float32))
+    g_table = f32(E, 3 * M)
+    s_table = f32(E, D)
+    w_i, w_h = f32(F, 3 * M, scale=F ** -0.5), f32(M, 3 * M, scale=M ** -0.5)
+    b_i, b_h = f32(3 * M), f32(3 * M)
+    mail_rows, s_rows, extra = f32(R, F), f32(R, M), f32(R, 3 * M)
+    w_v, b_v = f32(M + Fe, D, scale=(M + Fe) ** -0.5), f32(D)
+    kv = f32(R, K, M + Fe)
+    sel_dt = t((10 ** rng.uniform(0, 7, (R, K))).astype(np.float32))
+    logits = f32(R, K)
+    valid = t(rng.rand(R, K) > 0.2)
+    w_out, b_out = f32(M + D, WIDTH, scale=(M + D) ** -0.5), f32(WIDTH)
+    vids = t(rng.randint(0, V, R).astype(np.int32))
+    sel_ids = t(rng.randint(0, V, (R, K)).astype(np.int32))
+    sel_eid = t(rng.randint(0, NE, (R, K)).astype(np.int32))
+    hit = t(np.where(rng.rand(R, K) < 0.3, rng.randint(0, R, (R, K)),
+                     -1).astype(np.int32))
+    mail_ok = t(rng.rand(R) > 0.3)
+    memory, mail = f32(V, M), f32(V, F)
+    edge_feats = f32(NE, Fe)
+
+    def bucket_rows(d, bnd):
+        return (d.reshape(-1)[:, None] >= bnd[None, :]).sum(1)
+
+    lut_p = ops.pack_lut_params(bounds[:-1], g_table)
+    gru_p = ops.pack_gru_params(w_i, w_h, b_i, b_h)
+    sat_p = ops.pack_sat_params(w_v, b_v, bounds[:-1], s_table)
+    fused_p = {"w_i": w_i, "w_h": w_h, "b_i": b_i, "b_h": b_h,
+               "g_bounds": bounds, "g_table": g_table, "w_v": w_v,
+               "b_v": b_v, "s_bounds": bounds, "s_table": s_table,
+               "w_out": w_out, "b_out": b_out}
+    fused_args = (vids, sel_ids, sel_eid, hit, dt, mail_ok, sel_dt, logits,
+                  valid, memory, mail, edge_feats)
+    w_ih, w_hh = w_i.T.contiguous(), w_h.T.contiguous()
+    cold = sel_ids[hit < 0]
+    cases = {
+        "lut_encode": (
+            lambda: ops.lut_encode(dt, lut_p),
+            lambda: ops.lut_encode_plain(dt, lut_p["bounds"],
+                                         lut_p["table"]),
+            None,
+            nbytes(dt, bounds) + used_rows(bucket_rows(dt, bounds), 3 * M)
+            + R * 3 * M * 4,
+            R * E),
+        "gru_cell": (
+            lambda: ops.gru_cell(mail_rows, s_rows, gru_p, extra=extra),
+            lambda: ops.gru_cell_plain(mail_rows, s_rows, w_i, w_h, b_i, b_h,
+                                       extra),
+            # torch.gru_cell: gates [r|z|n], the same formula, no extra term
+            lambda: torch.gru_cell(mail_rows, s_rows, w_ih, w_hh, b_i, b_h),
+            nbytes(mail_rows, s_rows, extra, w_i, w_h, b_i, b_h)
+            + R * M * 4,
+            2 * R * (F + M) * 3 * M + 12 * R * M),
+        "sat_aggregate": (
+            lambda: ops.sat_aggregate(kv, sel_dt, logits, valid, sat_p),
+            lambda: ops.sat_aggregate_plain(kv, sel_dt, logits, valid, w_v,
+                                            b_v, sat_p["bounds"],
+                                            sat_p["table"]),
+            None,
+            nbytes(kv, sel_dt, logits, valid, w_v, b_v, bounds)
+            + used_rows(bucket_rows(sel_dt, bounds), D) + R * D * 4,
+            2 * R * K * (M + Fe) * D + R * K * E + 4 * R * K * D),
+        "fused_step": (
+            lambda: ops.fused_step(*fused_args, fused_p),
+            lambda: ops.fused_step_plain(*fused_args, fused_p),
+            None,
+            nbytes(vids, sel_ids, sel_eid, hit, dt, mail_ok, sel_dt, logits,
+                   valid, w_i, w_h, b_i, b_h, bounds, bounds, w_v, b_v,
+                   w_out, b_out)
+            + used_rows(vids, M + F) + used_rows(cold, M)
+            + used_rows(sel_eid, Fe)
+            + used_rows(bucket_rows(dt, bounds), 3 * M)
+            + used_rows(bucket_rows(sel_dt, bounds), D)
+            + R * (M + WIDTH) * 4,
+            2 * R * (F + M) * 3 * M + 12 * R * M
+            + 2 * R * K * (M + Fe) * D + R * (K + 1) * E + 4 * R * K * D
+            + 2 * R * (M + D) * WIDTH),
+    }
+    return cases
+
+
+KERNEL_META = {
+    "lut_encode": ("src/repro_torch/kernels/csrc/lut_encode.cu",
+                   "src/repro/kernels/lut_time_encode.py:42"),
+    "gru_cell": ("src/repro_torch/kernels/csrc/gru_cell.cu",
+                 "src/repro/kernels/gru_cell.py:55"),
+    "sat_aggregate": ("src/repro_torch/kernels/csrc/sat_aggregate.cu",
+                      "src/repro/kernels/sat_aggregate.py:67"),
+    "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                   "src/repro/kernels/fused_step.py:194"),
+}
+
+
+def check_kernels(ops, mp, dev) -> dict:
+    rows = {}
+    for name, (kern, plain, lib, nb, flops) in kernel_cases(
+            ops, mp, dev).items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else \
+            [(got, want)]
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        for a, b in pairs:
+            check(torch.isfinite(a).all().item(), f"{name}: finite output")
+            check(torch.allclose(a, b, **KERNEL_TOL),
+                  f"{name}: kernel vs plain within {KERNEL_TOL} "
+                  f"(max abs err {err:.3g})")
+        ms, plain_ms = device_ms(kern), device_ms(plain)
+        lib_ms = device_ms(lib) if lib is not None else None
+        call_ms = eager_ms(kern)
+        b_ms, b_by = bound(nb, flops)
+        print(f"kernel {name}: max_abs_err {err:.3g} (tol {KERNEL_TOL}); "
+              f"device {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+              f"library "
+              f"{'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
+              f"bound {b_ms * 1e3:.3f} us ({b_by}: {nb} B, {flops} flop); "
+              f"eager call {call_ms * 1e3:.2f} us", flush=True)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          call_ms=call_ms)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the main path: StreamingEngine on each tier
+# ---------------------------------------------------------------------------
+
+
+def run_engine(tier, cfg, params, g, device, n_batches, batch):
+    from repro_torch.data import stream
+    from repro_torch.serving.engine import EngineConfig, StreamingEngine
+    eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier), params,
+                          g.edge_feats, device=device)
+    embs = []
+    batches = stream.fixed_count(g, batch, window=slice(0, n_batches * batch))
+    for host, (es, ed) in eng.run(batches):
+        check(torch.isfinite(es).all().item()
+              and torch.isfinite(ed).all().item(), f"{tier}: finite")
+        embs.append((torch.cat([es, ed]).cpu(),
+                     torch.from_numpy(np.concatenate([host.valid,
+                                                      host.valid]))))
+    return eng, embs
+
+
+def compare_tiers(name, got, want, tol) -> float:
+    """Embeddings of every step (valid rows) and the final state of two
+    engines; ints and bools must be equal. Returns the largest float
+    difference."""
+    (ge, gs), (we, ws) = got, want
+    worst = 0.0
+    for i, ((a, m), (b, _)) in enumerate(zip(ge, we)):
+        a, b = a[m], b[m]
+        worst = max(worst, float((a - b).abs().max()))
+        check(torch.allclose(a, b, **tol), f"{name}: step {i} embeddings")
+    for f in gs._fields:
+        a, b = getattr(gs, f).cpu(), getattr(ws, f).cpu()
+        if a.dtype.is_floating_point:
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, **tol), f"{name}: state {f}")
+        else:
+            check(torch.equal(a, b), f"{name}: state {f} equal")
+    return worst
+
+
+def small_graph_check(pl, tgd) -> None:
+    """Staged and fused tiers on the card against the ref tier on the CPU,
+    on a small graph (f = 16, 300 edges, 10 batches of 30)."""
+    g = tgd.wikipedia_like(n_edges=300)
+    dims = dict(n_nodes=g.cfg.n_nodes, n_edges=g.n_edges, f_edge=172,
+                f_mem=16, f_time=16, f_emb=16, m_r=10)
+    cfg = pl.variant_config("sat+lut+np4", **dims)
+    params = pl.build_pipeline(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(3))
+    ref, ref_embs = run_engine("ref", cfg, params, g, "cpu", 10, 30)
+    want = (ref_embs, ref.state)
+    for tier in ("staged", "fused"):
+        eng, embs = run_engine(tier, cfg, params, g, "cuda", 10, 30)
+        err = compare_tiers(f"small {tier} (cuda) vs ref (cpu)",
+                            (embs, eng.state), want, TIER_TOL)
+        print(f"small graph: {tier} on the card vs ref on the CPU, max abs "
+              f"diff {err:.3g} (tol {TIER_TOL})", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import pipeline as pl
+    from repro_torch.data import temporal_graph as tgd
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import main_path as mp
+
+    card = card_line()
+    print("card:", card, flush=True)
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.relpath(lib, ROOT)}", flush=True)
+    for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    kernels = check_kernels(ops, mp, dev)
+    small_graph_check(pl, tgd)
+
+    t0 = time.perf_counter()
+    g, cfg, params = mp.build(dev)
+    print(f"graph: {g.cfg.n_nodes} vertices, {g.n_edges} edges, f_edge "
+          f"{g.edge_feats.shape[1]} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    runs, launches = {}, {}
+    for tier in ("ref", "staged", "fused"):
+        ops.reset_launch_counts()
+        eng, embs = run_engine(tier, cfg, params, g, dev, N_BATCHES, mp.B)
+        launches[tier] = ops.launch_counts()
+        runs[tier] = (embs, eng.state)
+        print(f"engine {tier}: stages {eng.describe()}", flush=True)
+        print(f"engine {tier}: summary {eng.summary()}", flush=True)
+        print(f"engine {tier}: launches {launches[tier]}", flush=True)
+    check(sum(launches["ref"].values()) == 0, "ref tier launches nothing")
+    for name in ("lut_encode", "gru_cell", "sat_aggregate"):
+        check(launches["staged"][name] == N_BATCHES,
+              f"staged run launched {name} once per step")
+    check(launches["fused"]["fused_step"] == N_BATCHES,
+          "fused run launched fused_step once per step")
+    for tier in ("staged", "fused"):
+        err = compare_tiers(f"{tier} vs ref", runs[tier], runs["ref"],
+                            TIER_TOL)
+        print(f"engine {tier} vs ref: max abs diff {err:.3g} over "
+              f"{N_BATCHES} steps and the final state (tol {TIER_TOL})",
+              flush=True)
+
+    rows = []
+    for name, k in kernels.items():
+        tier = "fused" if name == "fused_step" else "staged"
+        source, replaces = KERNEL_META[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": launches[tier][name],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"],
+                     "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"],
+                     "call_ms": k["call_ms"]})
+    print("card:", card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,187 @@
+"""The TGN pipeline: Algorithm 1 as one composition of the stages.
+
+Port of ``repro.core.pipeline`` for the co-designed student ladder
+``sat+lut`` and ``sat+lut+np<k>``:
+
+    pipe = build_pipeline("sat+lut+np4", n_nodes=..., n_edges=...)
+    aux  = pipe.prepare(params)                  # folded/packed tables
+    out  = pipe.step(params, aux, state, batch, edge_feats)   # BatchOut
+
+A pipeline runs on ``cuda`` unless it is given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.utils import resolve_device
+from repro_torch.core import mailbox, memory, stages, tgn
+
+
+class VariantSpec(NamedTuple):
+    """The model axes of the paper's ablation ladder."""
+    attention: str          # "sat"
+    encoder: str            # "lut"
+    prune_k: int | None     # None | 6 | 4 | 2 | ...
+    sampler: str = "recent"
+
+
+_REGISTRY = {
+    "sat+lut": VariantSpec("sat", "lut", None),
+    "sat+lut+np6": VariantSpec("sat", "lut", 6),
+    "sat+lut+np4": VariantSpec("sat", "lut", 4),
+    "sat+lut+np2": VariantSpec("sat", "lut", 2),
+}
+_ALIASES = {"+LUT": "sat+lut", "+NP(L)": "sat+lut+np6", "np6": "sat+lut+np6",
+            "+NP(M)": "sat+lut+np4", "np4": "sat+lut+np4",
+            "student": "sat+lut+np4", "+NP(S)": "sat+lut+np2",
+            "np2": "sat+lut+np2"}
+
+
+def spec_menu() -> str:
+    return ("the port serves 'sat+lut' and 'sat+lut+np<k>' (k a positive "
+            f"integer); registered: {sorted(_REGISTRY)}; aliases: "
+            f"{sorted(_ALIASES)}")
+
+
+def resolve_variant(spec) -> VariantSpec:
+    """A canonical name, an alias, ``sat+lut+np<k>``, a VariantSpec or a
+    TGNConfig."""
+    if isinstance(spec, VariantSpec):
+        return spec
+    if isinstance(spec, tgn.TGNConfig):
+        return VariantSpec(spec.attention, spec.encoder, spec.prune_k,
+                           spec.sampler)
+    if not isinstance(spec, str):
+        raise TypeError(f"cannot resolve variant from {type(spec)!r}")
+    name = _ALIASES.get(spec, spec)
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    parts = spec.split("+")
+    if (len(parts) == 3 and parts[:2] == ["sat", "lut"]
+            and parts[2].startswith("np") and parts[2][2:].isdigit()
+            and int(parts[2][2:]) > 0):
+        return VariantSpec("sat", "lut", int(parts[2][2:]))
+    raise ValueError(f"unknown variant {spec!r}; {spec_menu()}")
+
+
+def variant_name(spec) -> str:
+    v = resolve_variant(spec)
+    base = f"{v.attention}+{v.encoder}"
+    if v.prune_k is not None:
+        base += f"+np{v.prune_k}"
+    if v.sampler != "recent":
+        base += f"+{v.sampler}"
+    return base
+
+
+def variant_config(spec, **dims) -> tgn.TGNConfig:
+    """TGNConfig for a variant at the given table/feature dims."""
+    v = resolve_variant(spec)
+    return tgn.TGNConfig(**dims, attention=v.attention, encoder=v.encoder,
+                         prune_k=v.prune_k, sampler=v.sampler)
+
+
+class TGNPipeline:
+    """Algorithm 1 as a composition of the resolved stages, on one device.
+
+      prepare(params) -> aux                       derived tables
+      step(params, aux, state, batch, edge_feats) -> BatchOut
+    """
+
+    def __init__(self, cfg: tgn.TGNConfig, use_kernels=False, device=None):
+        #: the tier that runs (checks that the port covers ``cfg``)
+        self.tier = stages.resolved_tier(cfg, use_kernels)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.variant = variant_name(cfg)
+        self.stages = stages.build_stages(cfg, use_kernels)
+        self.prepare = stages.make_prepare(cfg, use_kernels)
+
+    def init_params(self, generator: torch.Generator | None = None,
+                    dt_samples=None) -> dict:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return tgn.init_params(generator, self.cfg, self.device,
+                               dt_samples=dt_samples)
+
+    def init_state(self) -> mailbox.VertexState:
+        return tgn.init_state(self.cfg, self.device)
+
+    def step(self, params: dict, aux: dict, state: mailbox.VertexState,
+             batch, edge_feats: torch.Tensor) -> tgn.BatchOut:
+        """Process one chronological batch of edges ``(src, dst, eid, ts,
+        valid)`` (each (B,); ``valid`` may be None). Commits are
+        chronological, last write wins per vertex; padding rows write
+        nothing (their embeddings are computed but are garbage the caller
+        must mask)."""
+        src, dst, eid, ts, valid = batch
+        B = src.shape[0]
+        vids = torch.cat([src, dst])                 # (2B,) involved instances
+        t_inst = torch.cat([ts, ts])
+        vvalid = (torch.cat([valid, valid]) if valid is not None
+                  else torch.ones((2 * B,), dtype=torch.bool,
+                                  device=src.device))
+        st = self.stages
+
+        # fused tier: the post-prune datapath is ONE fused_step call
+        if st.fused is not None:
+            return st.fused(params, aux, state, batch, vids, t_inst, vvalid,
+                            edge_feats)
+
+        # 1. UPDT: consume cached mail for involved vertices
+        s_upd, lu_upd = st.memory_updater(params, aux, state, vids)
+
+        # 2. chronological commit of memory (winners computed ONCE)
+        winners = st.committer.winners(vids, vvalid, B)
+        state = st.committer.commit_memory(state, vids, winners, s_upd,
+                                           lu_upd)
+
+        # 3. GNN embeddings (sampler + aggregator on updated memory)
+        nb = st.sampler(params, aux, state, edge_feats, vids, t_inst)
+        s_self = state.memory[vids.long()]
+        h, logits = st.aggregator(params, aux, nb, s_self)
+
+        # 4. cache new messages (Most-Recent aggregator == LWW commit)
+        mem_t = state.memory
+        fe = edge_feats[eid.long()]
+        ms, md = mem_t[src.long()], mem_t[dst.long()]
+        new_mail = torch.cat([memory.build_mail_raw(ms, md, fe),
+                              memory.build_mail_raw(md, ms, fe)])
+        state = st.committer.commit_mail(state, vids, winners, new_mail,
+                                         t_inst)
+
+        # 5. neighbor ring-buffer insertion (FIFO sampler)
+        state = mailbox.insert_neighbors(state, src, dst, eid, ts, valid)
+
+        return tgn.BatchOut(state=state, emb_src=h[:B], emb_dst=h[B:],
+                            attn_logits=logits, nbr_valid=nb.full_valid,
+                            nbr_dt=nb.full_dt)
+
+    def step_fn(self, params: dict, state: mailbox.VertexState, batch,
+                edge_feats: torch.Tensor) -> tgn.BatchOut:
+        """``step`` with aux derived from ``params`` on the spot."""
+        return self.step(params, self.prepare(params), state, batch,
+                         edge_feats)
+
+    def describe(self) -> dict:
+        """Variant + resolved stage backends (introspection/logging)."""
+        return {"variant": self.variant, "use_kernels": self.tier,
+                "tier": self.tier, "device": str(self.device),
+                **self.stages.names}
+
+
+def build_pipeline(spec, use_kernels=False, device=None,
+                   **dims) -> TGNPipeline:
+    """Build the pipeline for a variant. ``spec`` is a TGNConfig (``dims``
+    must then be empty) or a variant string whose ``dims`` fill in the
+    TGNConfig table/feature fields."""
+    if isinstance(spec, tgn.TGNConfig):
+        if dims:
+            raise TypeError("dims are only valid with a variant spec, "
+                            "not a full TGNConfig")
+        cfg = spec
+    else:
+        cfg = variant_config(spec, **dims)
+    return TGNPipeline(cfg, use_kernels, device=device)

@@ -1,0 +1,386 @@
+"""Algorithm 1 of the SAT+LUT student as pluggable stages.
+
+Port of the student half of ``repro.core.stages``:
+
+  MemoryUpdater  (MUU)    consume cached mail -> updated memory rows
+                          (LUT reference | LUT + GRU kernels)
+  Selector/Sampler        prune-then-fetch: top-k from the ring buffer's
+                          timestamps ONLY, then gather just the k winners
+  Aggregator     (EU)     SAT reference | SAT-aggregate kernel
+  Committer               chronological last-write-wins commit (§IV-B)
+  fused step              the single-pass tier: selection metadata, then
+                          ONE fused_step call (kernels/csrc/fused_step.cu)
+
+Stages are closures built from a frozen ``TGNConfig``; per-call inputs are
+``(params, aux, ...)`` where ``aux = prepare(params)`` carries the folded
+LUT tables and the kernels' parameter packs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import attention as attn_mod
+from repro_torch.core import mailbox, memory, pruning, time_encode as te
+from repro_torch.core import updater
+from repro_torch.kernels import ops as kops
+
+#: Kernel-backend tiers. ``use_kernels`` accepts a tier name or a bool
+#: (False -> "ref", True -> "staged"):
+#:   ref     torch stage references (the numerics oracle)
+#:   staged  one kernel per unit (LUT encode, GRU, SAT aggregate)
+#:   fused   the single-pass step (fused_step: MUU + winner gather + EU)
+KERNEL_TIERS = ("ref", "staged", "fused")
+
+
+def kernel_tier(use_kernels) -> str:
+    """Normalize a ``use_kernels`` value (bool-like or tier name)."""
+    if isinstance(use_kernels, str):
+        if use_kernels in KERNEL_TIERS:
+            return use_kernels
+        raise ValueError(f"unknown kernel tier {use_kernels!r}; pass a "
+                         f"bool or one of {KERNEL_TIERS}")
+    return "staged" if use_kernels else "ref"
+
+
+def fused_supported(cfg) -> bool:
+    """The fused step covers SAT attention + LUT encoder without static
+    node features (the paper's Wikipedia/Reddit setting)."""
+    return (cfg.attention == "sat" and cfg.encoder == "lut"
+            and cfg.f_feat == 0)
+
+
+def check_supported(cfg) -> None:
+    """The port's one coverage rule: the configurations the fused step
+    covers, with the "recent" sampler. Every tier runs all of them."""
+    if not fused_supported(cfg):
+        raise ValueError("the port covers the SAT+LUT student without "
+                         f"static node features only; got attention="
+                         f"{cfg.attention!r}, encoder={cfg.encoder!r}, "
+                         f"f_feat={cfg.f_feat}")
+    if cfg.sampler != "recent":
+        raise ValueError("the port covers the 'recent' sampler only; got "
+                         f"{cfg.sampler!r}")
+
+
+def resolved_tier(cfg, use_kernels) -> str:
+    """The tier that runs for ``cfg``. The reference degrades ``"fused"``
+    to ``"staged"`` outside ``fused_supported``; the port accepts no such
+    configuration (``check_supported``), so the requested tier runs."""
+    check_supported(cfg)
+    return kernel_tier(use_kernels)
+
+
+class Neighborhood(NamedTuple):
+    """What the sampler hands the aggregator: the k fetched slots, plus the
+    full m_r-slot views."""
+    s_nbr: torch.Tensor         # (2B, k, f_mem) masked neighbor memory
+    e_nbr: torch.Tensor         # (2B, k, f_edge) masked edge features
+    dt: torch.Tensor            # (2B, k) time deltas of fetched slots
+    valid: torch.Tensor         # (2B, k) fetched-slot validity
+    logits: torch.Tensor        # (2B, k) SAT logits of fetched slots
+    full_logits: torch.Tensor   # (2B, m_r) pre-softmax scores
+    full_valid: torch.Tensor    # (2B, m_r) ring-buffer validity
+    full_dt: torch.Tensor       # (2B, m_r) time deltas of every slot
+
+
+class Selection(NamedTuple):
+    """Prune-then-fetch metadata: everything selection decides from
+    timestamps/ids alone, before any memory/feature gather."""
+    ids: torch.Tensor           # (2B, k) int32 winner vertex ids
+    eids: torch.Tensor          # (2B, k) int32 winner edge-feature rows
+    dt: torch.Tensor            # (2B, k) winner time deltas
+    logits: torch.Tensor        # (2B, k) SAT logits (NEG_INF where invalid)
+    valid: torch.Tensor         # (2B, k) bool winner validity
+    full_logits: torch.Tensor   # (2B, m_r)
+    full_valid: torch.Tensor    # (2B, m_r)
+    full_dt: torch.Tensor       # (2B, m_r)
+
+
+class StageBundle(NamedTuple):
+    """The resolved stage stack for one variant and tier. The fused tier
+    carries only ``fused``, the committer and the names; the per-unit
+    stages are None there."""
+    memory_updater: object      # (params, aux, state, vids) -> (s_upd, lu_upd)
+    sampler: object             # (params, aux, state, ef, vids, t) -> Neighborhood
+    aggregator: object          # (params, aux, nb, s_self) -> (h, logits)
+    committer: object           # LastWriteWinsCommitter
+    names: dict                 # stage name -> backend label
+    fused: object = None        # fused tier only: the one-call step body
+
+
+# ---------------------------------------------------------------------------
+# aux: folded LUT rows + the kernels' parameter packs (§III-C)
+# ---------------------------------------------------------------------------
+
+
+def make_prepare(cfg, use_kernels=False):
+    """Build ``prepare(params) -> aux``:
+      folded_gru / folded_attn   LUT tables folded through the time rows of
+                                 W_i / W_v (te.fold_projection)
+      packed_gru / packed_lut_gru / packed_sat
+                                 the staged kernels' packs (staged tier)
+      packed_fused               the fused step's pack (fused tier)
+    """
+    tier = resolved_tier(cfg, use_kernels)
+
+    def prepare(params: dict) -> dict:
+        gcfg = cfg.gru
+        gru_p, attn_p = params["gru"], params["attn"]
+        dkv = cfg.f_mem + cfg.f_edge
+        folded_gru = te.fold_projection(params["time"],
+                                        gru_p["w_i"][gcfg.f_mail_raw:])
+        folded_attn = te.fold_projection(params["time"], attn_p["w_v"][dkv:])
+        aux = {"folded_gru": folded_gru, "folded_attn": folded_attn}
+        if tier == "staged":
+            aux["packed_gru"] = kops.pack_gru_params(
+                gru_p["w_i"][:gcfg.f_mail_raw], gru_p["w_h"], gru_p["b_i"],
+                gru_p["b_h"])
+            aux["packed_lut_gru"] = kops.pack_lut_params(
+                folded_gru["boundaries"], folded_gru["table"])
+            aux["packed_sat"] = kops.pack_sat_params(
+                attn_p["w_v"][:dkv], attn_p["b_v"],
+                folded_attn["boundaries"], folded_attn["table"])
+        elif tier == "fused":
+            aux["packed_fused"] = kops.pack_fused_params(
+                gru_p, attn_p, folded_gru, folded_attn, gcfg.f_mail_raw,
+                cfg.f_mem, cfg.f_edge)
+        return aux
+
+    return prepare
+
+
+# ---------------------------------------------------------------------------
+# MemoryUpdater (MUU)
+# ---------------------------------------------------------------------------
+
+
+def make_memory_updater(cfg, staged: bool):
+    """UPDT: ``muu(params, aux, state, vids) -> (s_upd, lu_upd)`` from the
+    cached mail of ``vids``; vertices without valid mail keep their rows."""
+    gcfg = cfg.gru
+
+    if staged:
+        def muu(params, aux, state, vids):
+            vids = vids.long()
+            mail_valid = state.mail_valid[vids]
+            mail_ts = state.mail_ts[vids]
+            s_prev = state.memory[vids]
+            lu_prev = state.last_update[vids]
+            # LUT row fetch kernel -> fused GRU kernel: the folded time rows
+            # enter the GRU as an additive input-gate term.
+            time_rows = kops.lut_encode(mail_ts - lu_prev,
+                                        aux["packed_lut_gru"])
+            s_new = kops.gru_cell(state.mail[vids], s_prev,
+                                  aux["packed_gru"], extra=time_rows)
+            s_upd = torch.where(mail_valid[:, None], s_new, s_prev)
+            lu_upd = torch.where(mail_valid, mail_ts, lu_prev)
+            return s_upd, lu_upd
+
+        return muu, "gru:lut-cuda"
+
+    def muu(params, aux, state, vids):
+        vids = vids.long()
+        return memory.update_memory(
+            params["gru"], params["time"], gcfg,
+            state.mail[vids], state.mail_ts[vids], state.mail_valid[vids],
+            state.memory[vids], state.last_update[vids],
+            lut_folded=aux.get("folded_gru"))
+
+    return muu, "gru:lut-ref"
+
+
+# ---------------------------------------------------------------------------
+# Selector + prune-then-fetch sampler ("recent": SAT top-k)
+# ---------------------------------------------------------------------------
+
+
+def make_selector(cfg):
+    """``select(params, aux, state, vids, t_query) -> Selection``: the k
+    winners by SAT logit, from the ring buffer's timestamps/ids only."""
+    k = min(cfg.prune_k if cfg.prune_k is not None else cfg.m_r, cfg.m_r)
+
+    def select(params, aux, state, vids, t_query):
+        nbr_ids, nbr_ts, nbr_eid, valid = mailbox.gather_neighbors(
+            state, vids)
+        dt = (t_query[:, None] - nbr_ts).clamp(min=0.0) * valid
+        logits = attn_mod.sat_logits(params["attn"], dt)      # ts ONLY
+        if k < cfg.m_r:
+            idx, sel_logits, sel_valid = pruning.topk_select(logits, valid, k)
+            sel_ids = torch.gather(nbr_ids, 1, idx)
+            sel_eid = torch.gather(nbr_eid, 1, idx)
+            sel_dt = torch.gather(dt, 1, idx)
+        else:
+            sel_ids, sel_eid, sel_dt = nbr_ids, nbr_eid, dt
+            sel_logits, sel_valid = logits, valid
+        return Selection(ids=sel_ids, eids=sel_eid, dt=sel_dt,
+                         logits=sel_logits, valid=sel_valid,
+                         full_logits=logits, full_valid=valid, full_dt=dt)
+
+    name = (f"sampler:prune-then-fetch(k={k})" if k < cfg.m_r
+            else "sampler:score-all")
+    return select, name
+
+
+def make_sampler(cfg):
+    """``sampler(params, aux, state, edge_feats, vids, t_query) ->
+    Neighborhood``: selection metadata, then ONLY the winners' rows."""
+    select, name = make_selector(cfg)
+
+    def sampler(params, aux, state, edge_feats, vids, t_query):
+        sel = select(params, aux, state, vids, t_query)
+        vmask = sel.valid[..., None]
+        s_nbr = state.memory[sel.ids.long()] * vmask
+        e_nbr = edge_feats[sel.eids.long()] * vmask
+        return Neighborhood(s_nbr=s_nbr, e_nbr=e_nbr, dt=sel.dt,
+                            valid=sel.valid, logits=sel.logits,
+                            full_logits=sel.full_logits,
+                            full_valid=sel.full_valid, full_dt=sel.full_dt)
+
+    return sampler, name
+
+
+# ---------------------------------------------------------------------------
+# Aggregator (EU)
+# ---------------------------------------------------------------------------
+
+
+def make_aggregator(cfg, staged: bool):
+    """``aggregator(params, aux, nb, s_self) -> (h, full_logits)``."""
+    dkv = cfg.f_mem + cfg.f_edge
+
+    def out_transform(attn_p, s_self, agg):
+        fp = attn_mod.feat_proj(attn_p["feat"], s_self, None)
+        return torch.cat([fp, agg], dim=-1) @ attn_p["w_out"] + attn_p["b_out"]
+
+    if staged:
+        def aggregator(params, aux, nb, s_self):
+            kv = torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
+            agg = kops.sat_aggregate(kv, nb.dt, nb.logits, nb.valid,
+                                     aux["packed_sat"])
+            return out_transform(params["attn"], s_self, agg), nb.full_logits
+
+        return aggregator, "attn:sat-lut-cuda"
+
+    def aggregator(params, aux, nb, s_self):
+        attn_p = params["attn"]
+        attnw = pruning.masked_softmax(nb.logits, nb.valid)
+        v = (torch.cat([nb.s_nbr, nb.e_nbr], dim=-1) @ attn_p["w_v"][:dkv]
+             + te.lut_encode(aux["folded_attn"], nb.dt) + attn_p["b_v"])
+        agg = torch.einsum("bn,bnd->bd", attnw, v)
+        return out_transform(attn_p, s_self, agg), nb.full_logits
+
+    return aggregator, "attn:sat-lut-ref"
+
+
+# ---------------------------------------------------------------------------
+# Committer — chronological last-write-wins (§IV-B)
+# ---------------------------------------------------------------------------
+
+
+class LastWriteWinsCommitter:
+    """Per batch, exactly the chronologically-last valid update of each
+    vertex survives. The winner mask is computed once per batch and shared
+    by the memory commit and the mail commit."""
+
+    def winners(self, vids, vvalid, B: int):
+        return updater.last_write_wins(
+            vids, vvalid, updater.interleave_order(B, vids.device))
+
+    def commit_memory(self, state, vids, winners, s_upd, lu_upd):
+        """Commit updated memory rows; consuming mail invalidates it."""
+        return state._replace(
+            memory=updater.commit(state.memory, vids, s_upd, winners),
+            last_update=updater.commit_scalar(state.last_update, vids,
+                                              lu_upd, winners),
+            mail_valid=updater.commit_scalar(
+                state.mail_valid, vids, torch.zeros_like(winners), winners))
+
+    def commit_mail(self, state, vids, winners, new_mail, t_inst):
+        """Cache new messages (Most-Recent aggregator == LWW commit)."""
+        return state._replace(
+            mail=updater.commit(state.mail, vids, new_mail, winners),
+            mail_ts=updater.commit_scalar(state.mail_ts, vids, t_inst,
+                                          winners),
+            mail_valid=updater.commit_scalar(
+                state.mail_valid, vids, torch.ones_like(winners), winners))
+
+
+# ---------------------------------------------------------------------------
+# Fused tier: the single-pass step body (§IV, Fig. 4)
+# ---------------------------------------------------------------------------
+
+
+def make_fused_step(cfg):
+    """The fused-tier step body: selection metadata -> ONE fused_step call
+    (MUU + winner gather + EU) -> state commits and ring insert.
+
+    Only ids, timestamps and validity are computed outside the call; the
+    memory, mail and edge-feature rows are read inside it. The mail build
+    and the commits stay in torch after the call.
+    """
+    from repro_torch.core import tgn             # BatchOut (no cycle)
+
+    select, _ = make_selector(cfg)
+    committer = LastWriteWinsCommitter()
+    V = cfg.n_nodes
+
+    def fused(params, aux, state, batch, vids, t_inst, vvalid, edge_feats):
+        src, dst, eid, ts, valid = batch
+        B = src.shape[0]
+        R = vids.shape[0]
+        winners = committer.winners(vids, vvalid, B)
+        sel = select(params, aux, state, vids, t_inst)
+        vl = vids.long()
+        mail_ts = state.mail_ts[vl]
+        lu_prev = state.last_update[vl]
+        mail_ok = state.mail_valid[vl]
+        # winner-row redirect (ids only): hit[r, j] >= 0 names the batch row
+        # whose phase-0 output IS the committed memory of winner (r, j).
+        win_rows = torch.full((V + 1,), -1, dtype=torch.int32,
+                              device=vids.device)
+        win_rows[torch.where(winners, vl, torch.full_like(vl, V))] = \
+            torch.arange(R, dtype=torch.int32, device=vids.device)
+        hit = win_rows[sel.ids.long()]
+        h, s_upd = kops.fused_step(
+            vids, sel.ids, sel.eids, hit, mail_ts - lu_prev, mail_ok, sel.dt,
+            sel.logits, sel.valid, state.memory, state.mail, edge_feats,
+            aux["packed_fused"])
+        lu_upd = torch.where(mail_ok, mail_ts, lu_prev)
+        state = committer.commit_memory(state, vids, winners, s_upd, lu_upd)
+        # mail build from s_upd: the committed memory of a valid row r is
+        # exactly s_upd[r] (duplicates of a vertex compute identical
+        # updates), so no post-commit gather is needed.
+        fe = edge_feats[eid.long()]
+        new_mail = torch.cat([
+            memory.build_mail_raw(s_upd[:B], s_upd[B:], fe),
+            memory.build_mail_raw(s_upd[B:], s_upd[:B], fe)])
+        state = committer.commit_mail(state, vids, winners, new_mail, t_inst)
+        state = mailbox.insert_neighbors(state, src, dst, eid, ts, valid)
+        return tgn.BatchOut(state=state, emb_src=h[:B], emb_dst=h[B:],
+                            attn_logits=sel.full_logits,
+                            nbr_valid=sel.full_valid, nbr_dt=sel.full_dt)
+
+    return fused
+
+
+def build_stages(cfg, use_kernels=False) -> StageBundle:
+    """Resolve the stage stack for ``cfg``: the per-unit stages on the ref
+    and staged tiers, the single-pass step body on the fused tier."""
+    tier = resolved_tier(cfg, use_kernels)
+    _, sampler_name = make_selector(cfg)
+    names = {"sampler": sampler_name, "committer": "lww-chronological"}
+    if tier == "fused":
+        names["fused_step"] = "step:single-pass-cuda"
+        return StageBundle(memory_updater=None, sampler=None,
+                           aggregator=None,
+                           committer=LastWriteWinsCommitter(), names=names,
+                           fused=make_fused_step(cfg))
+    staged = tier == "staged"
+    muu, names["memory_updater"] = make_memory_updater(cfg, staged)
+    sampler, _ = make_sampler(cfg)
+    aggregator, names["aggregator"] = make_aggregator(cfg, staged)
+    return StageBundle(memory_updater=muu, sampler=sampler,
+                       aggregator=aggregator,
+                       committer=LastWriteWinsCommitter(), names=names)

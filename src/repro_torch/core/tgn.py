@@ -1,0 +1,92 @@
+"""TGN configuration, batch output and parameter/state construction.
+
+Port of ``repro.core.tgn`` for the co-designed student (SAT attention, LUT
+encoder). The Algorithm-1 body is ``core.pipeline.TGNPipeline.step``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.utils import FrozenConfig
+from repro_torch.core import attention as attn_mod
+from repro_torch.core import mailbox, memory, time_encode as te
+
+
+@dataclasses.dataclass(frozen=True)
+class TGNConfig(FrozenConfig):
+    n_nodes: int = 10_000
+    n_edges: int = 200_000       # edge-feature store capacity
+    f_feat: int = 0              # static node features (GDELT: 200)
+    f_edge: int = 172            # edge features (Wikipedia/Reddit: 172)
+    f_mem: int = 100
+    f_time: int = 100
+    f_emb: int = 100
+    m_r: int = 10
+    # the only model axes the port serves yet: the SAT+LUT student with the
+    # "recent" sampler (the reference's teacher and samplers come later)
+    attention: str = "sat"
+    encoder: str = "lut"
+    lut_entries: int = 128
+    prune_k: int | None = None
+    sampler: str = "recent"
+
+    @property
+    def gru(self) -> memory.GRUConfig:
+        return memory.GRUConfig(f_mem=self.f_mem, f_edge=self.f_edge,
+                                f_time=self.f_time)
+
+    @property
+    def attn(self) -> attn_mod.AttnConfig:
+        return attn_mod.AttnConfig(
+            f_mem=self.f_mem, f_feat=self.f_feat, f_edge=self.f_edge,
+            f_time=self.f_time, f_emb=self.f_emb, m_r=self.m_r,
+            prune_k=self.prune_k)
+
+    @property
+    def tables(self) -> mailbox.TableConfig:
+        return mailbox.TableConfig(n_nodes=self.n_nodes, f_mem=self.f_mem,
+                                   f_edge=self.f_edge, m_r=self.m_r)
+
+
+class BatchOut(NamedTuple):
+    state: mailbox.VertexState
+    emb_src: torch.Tensor       # (B, f_emb) embeddings of edge sources
+    emb_dst: torch.Tensor       # (B, f_emb) embeddings of edge destinations
+    attn_logits: torch.Tensor   # (2B, m_r) pre-softmax scores (distillation)
+    nbr_valid: torch.Tensor     # (2B, m_r) neighbor validity
+    nbr_dt: torch.Tensor        # (2B, m_r) time deltas
+
+
+def init_params(generator: torch.Generator, cfg: TGNConfig, device,
+                dt_samples=None) -> dict:
+    """Random parameters for the SAT+LUT student, drawn from ``generator``.
+
+    The layout is the reference's (nested dicts); the draws are torch's, so
+    parity tests load the reference's parameters through
+    ``repro_torch.convert.params_from_reference`` instead.
+    """
+    if cfg.attention != "sat" or cfg.encoder != "lut":
+        raise ValueError("the port covers the SAT+LUT student only; got "
+                         f"attention={cfg.attention!r}, "
+                         f"encoder={cfg.encoder!r}")
+    tcfg = te.TimeEncoderConfig(dim=cfg.f_time, n_entries=cfg.lut_entries)
+    d = cfg.f_emb
+    return {
+        "gru": memory.init_gru(generator, cfg.gru, device),
+        "time": te.init_lut(generator, tcfg, device, dt_samples=dt_samples),
+        "attn": attn_mod.init_sat(generator, cfg.attn, device),
+        # downstream link predictor (self-supervision; Section II)
+        "link": {
+            "w1": memory.dense_init(generator, (2 * d, d), device),
+            "b1": torch.zeros((d,), device=device),
+            "w2": memory.dense_init(generator, (d, 1), device),
+            "b2": torch.zeros((1,), device=device),
+        },
+    }
+
+
+def init_state(cfg: TGNConfig, device) -> mailbox.VertexState:
+    return mailbox.init_state(cfg.tables, device)

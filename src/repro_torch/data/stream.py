@@ -1,0 +1,58 @@
+"""Chronological batching of a temporal edge stream (Section II-A setup).
+
+``fixed_count`` forms batches of a fixed number of graph signals, as in
+the paper. A numpy copy of that part of ``repro.data.stream``
+(array-equal batches for the same seed). Batches are padded to a fixed
+shape so one step shape serves the whole stream (padding rows are masked
+via eid/valid); each carries sampled negative destinations for the
+self-supervised link task.
+"""
+from __future__ import annotations
+
+from typing import Iterator, NamedTuple
+
+import numpy as np
+
+from repro_torch.data.temporal_graph import TemporalGraph
+
+
+class EdgeBatch(NamedTuple):
+    src: np.ndarray     # (B,) int32 (padded rows repeat the last edge)
+    dst: np.ndarray     # (B,) int32
+    eid: np.ndarray     # (B,) int32 — row into the edge-feature store
+    ts: np.ndarray      # (B,) float32
+    valid: np.ndarray   # (B,) bool — False on padding rows
+    neg_dst: np.ndarray # (B,) int32 — sampled negative destinations
+
+
+def _pad(x: np.ndarray, B: int) -> np.ndarray:
+    if x.shape[0] == B:
+        return x
+    reps = np.repeat(x[-1:], B - x.shape[0], axis=0)
+    return np.concatenate([x, reps], axis=0)
+
+
+def fixed_count(g: TemporalGraph, batch_size: int, *,
+                window: slice | None = None, seed: int = 0,
+                item_range: tuple[int, int] | None = None
+                ) -> Iterator[EdgeBatch]:
+    """Yield padded fixed-size chronological batches over ``window``."""
+    rng = np.random.RandomState(seed)
+    lo = (window.start or 0) if window else 0
+    hi = window.stop if window and window.stop is not None else g.n_edges
+    if item_range is None:
+        item_range = (g.cfg.n_users, g.cfg.n_nodes)
+    for s in range(lo, hi, batch_size):
+        e = min(s + batch_size, hi)
+        idx = np.arange(s, e)
+        n = idx.shape[0]
+        neg = rng.randint(item_range[0], item_range[1],
+                          size=batch_size).astype(np.int32)
+        yield EdgeBatch(
+            src=_pad(g.src[idx], batch_size),
+            dst=_pad(g.dst[idx], batch_size),
+            eid=_pad(idx.astype(np.int32), batch_size),
+            ts=_pad(g.ts[idx], batch_size),
+            valid=np.arange(batch_size) < n,
+            neg_dst=neg,
+        )

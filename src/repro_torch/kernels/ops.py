@@ -1,0 +1,373 @@
+"""Entry points of the port's four kernels, at the reference's native dims.
+
+Counterpart of ``repro.kernels.ops``. Each entry point takes tensors at
+the model's own widths (f_mem = 100, f_edge = 172, ...; nothing is padded
+to the TPU's 128 lanes: the CUDA kernels mask their own ragged edges):
+
+  lut_encode     kernels/csrc/lut_encode.cu     lut_encode_pallas
+  gru_cell       kernels/csrc/gru_cell.cu       gru_cell_pallas
+  sat_aggregate  kernels/csrc/sat_aggregate.cu  sat_aggregate_pallas
+  fused_step     kernels/csrc/fused_step.cu     fused_step_pallas
+
+Beside each one is its plain PyTorch version (``*_plain``), with the
+semantics of ``repro.kernels.ref``. An entry point given CPU tensors runs
+the plain version; given CUDA tensors it checks them and launches the
+kernel on the current stream, or raises. It never falls back.
+
+``LAUNCHES`` counts launches per entry point: one for each call that
+launches its kernel (``fused_step``'s two back-to-back phases are one
+call, as in the reference), so a run can show that its main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.utils import NEG_INF
+
+#: kernel launches per entry point since the last ``reset_launch_counts``.
+LAUNCHES = {"lut_encode": 0, "gru_cell": 0, "sat_aggregate": 0,
+            "fused_step": 0}
+
+#: the kernels take at most this many winners per row (16 warps a block).
+MAX_K = 16
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _check_cuda(device: torch.device, **tensors) -> None:
+    """Every tensor the kernel reads or writes: on ``device``, contiguous,
+    and of the dtype the kernel takes (given as ``name=(tensor, dtype)``)."""
+    for name, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` on the current stream of ``device``;
+    tensors pass as device pointers, ints as ints."""
+    from repro_torch.kernels import build
+    fn = getattr(build.library(), name)
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else
+            (None if a is None else int(a)) for a in args]
+    with torch.cuda.device(device):
+        err = fn(*conv, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+F32, I32, BOOL = torch.float32, torch.int32, torch.bool
+
+
+# ---------------------------------------------------------------------------
+# Parameter packs (built once per model by core.stages.make_prepare)
+# ---------------------------------------------------------------------------
+
+
+def sentinel_bounds(boundaries: torch.Tensor, E: int) -> torch.Tensor:
+    """bounds (E-1,) -> (E,) with a +inf sentinel: the one boundary layout
+    every kernel's bucketing reads (rt::lut_bucket)."""
+    pad = torch.full((E - boundaries.shape[0],), float("inf"), dtype=F32,
+                     device=boundaries.device)
+    return torch.cat([boundaries.to(F32), pad]).contiguous()
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(F32).contiguous()
+
+
+def pack_lut_params(boundaries: torch.Tensor, table: torch.Tensor) -> dict:
+    return {"bounds": sentinel_bounds(boundaries, table.shape[0]),
+            "table": _f32(table)}
+
+
+def pack_gru_params(w_i: torch.Tensor, w_h: torch.Tensor, b_i: torch.Tensor,
+                    b_h: torch.Tensor) -> dict:
+    """w_i (F, 3M) raw-mail rows, w_h (M, 3M), biases (3M,); gate blocks
+    [r | z | n] at f_mem strides, as in the core layout."""
+    return {"w_i": _f32(w_i), "w_h": _f32(w_h), "b_i": _f32(b_i),
+            "b_h": _f32(b_h)}
+
+
+def pack_sat_params(w_v: torch.Tensor, b_v: torch.Tensor,
+                    boundaries: torch.Tensor,
+                    folded_table: torch.Tensor) -> dict:
+    """w_v (Dkv, D) memory||edge rows only; folded table (E, D) is
+    table @ W_v[time rows]."""
+    return {"w_v": _f32(w_v), "b_v": _f32(b_v),
+            "bounds": sentinel_bounds(boundaries, folded_table.shape[0]),
+            "table": _f32(folded_table)}
+
+
+def pack_fused_params(gru_params: dict, attn_params: dict, folded_gru: dict,
+                      folded_attn: dict, f_mail_raw: int, f_mem: int,
+                      f_edge: int) -> dict:
+    """Everything the fused step reads: the raw-mail GRU weights and the
+    GRU-folded table (E, 3M); W_v's memory||edge rows (M + Fe, D) and the
+    attention-folded table (E, D); the output transform (M + D, f_emb)."""
+    gru = pack_gru_params(gru_params["w_i"][:f_mail_raw], gru_params["w_h"],
+                          gru_params["b_i"], gru_params["b_h"])
+    E = folded_gru["table"].shape[0]
+    return {
+        **gru,
+        "g_bounds": sentinel_bounds(folded_gru["boundaries"], E),
+        "g_table": _f32(folded_gru["table"]),
+        "w_v": _f32(attn_params["w_v"][:f_mem + f_edge]),
+        "b_v": _f32(attn_params["b_v"]),
+        "s_bounds": sentinel_bounds(folded_attn["boundaries"], E),
+        "s_table": _f32(folded_attn["table"]),
+        "w_out": _f32(attn_params["w_out"]),
+        "b_out": _f32(attn_params["b_out"]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# LUT time encode
+# ---------------------------------------------------------------------------
+
+
+def lut_encode_plain(dt: torch.Tensor, bounds: torch.Tensor,
+                     table: torch.Tensor) -> torch.Tensor:
+    """dt (n,), bounds (E,) with sentinel, table (E, D) -> (n, D)."""
+    bucket = (dt[:, None] >= bounds[None, :]).sum(dim=1)
+    return table[bucket.clamp(max=table.shape[0] - 1)]
+
+
+def lut_encode(dt: torch.Tensor, packed: dict) -> torch.Tensor:
+    """dt (...,) -> (..., D): the packed table's row of bucket(dt)."""
+    bounds, table = packed["bounds"], packed["table"]
+    E, D = table.shape
+    shape = dt.shape
+    flat = dt.reshape(-1)
+    if flat.device.type == "cpu":
+        return lut_encode_plain(flat, bounds, table).reshape(*shape, D)
+    _check_cuda(flat.device, dt=(flat, F32), bounds=(bounds, F32),
+                table=(table, F32))
+    _check_shape("bounds", bounds, (E,))
+    out = torch.empty((flat.shape[0], D), dtype=F32, device=flat.device)
+    _launch("rt_lut_encode", flat.device, flat, bounds, table, out,
+            flat.shape[0], E, D)
+    LAUNCHES["lut_encode"] += 1
+    return out.reshape(*shape, D)
+
+
+# ---------------------------------------------------------------------------
+# GRU memory update
+# ---------------------------------------------------------------------------
+
+
+def gru_cell_plain(mail: torch.Tensor, s: torch.Tensor, w_i: torch.Tensor,
+                   w_h: torch.Tensor, b_i: torch.Tensor, b_h: torch.Tensor,
+                   extra: torch.Tensor | None = None) -> torch.Tensor:
+    M = s.shape[-1]
+    gi = mail @ w_i + b_i
+    if extra is not None:
+        gi = gi + extra
+    gh = s @ w_h + b_h
+    r = torch.sigmoid(gi[:, :M] + gh[:, :M])
+    z = torch.sigmoid(gi[:, M:2 * M] + gh[:, M:2 * M])
+    n = torch.tanh(gi[:, 2 * M:] + r * gh[:, 2 * M:])
+    return (1.0 - z) * n + z * s
+
+
+def gru_cell(mail: torch.Tensor, s: torch.Tensor, packed: dict,
+             extra: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused GRU cell. mail (n, F), s (n, M), ``packed`` from
+    pack_gru_params, ``extra`` optional (n, 3M) additive input-gate rows
+    (the LUT-folded time rows). Returns (n, M)."""
+    w_i, w_h, b_i, b_h = (packed[k] for k in ("w_i", "w_h", "b_i", "b_h"))
+    if mail.device.type == "cpu":
+        return gru_cell_plain(mail, s, w_i, w_h, b_i, b_h, extra)
+    n, F = mail.shape
+    M = s.shape[1]
+    dev = mail.device
+    tensors = dict(mail=(mail, F32), s=(s, F32), w_i=(w_i, F32),
+                   w_h=(w_h, F32), b_i=(b_i, F32), b_h=(b_h, F32))
+    if extra is not None:
+        tensors["extra"] = (extra, F32)
+        _check_shape("extra", extra, (n, 3 * M))
+    _check_cuda(dev, **tensors)
+    _check_shape("s", s, (n, M))
+    _check_shape("w_i", w_i, (F, 3 * M))
+    _check_shape("w_h", w_h, (M, 3 * M))
+    _check_shape("b_i", b_i, (3 * M,))
+    _check_shape("b_h", b_h, (3 * M,))
+    out = torch.empty((n, M), dtype=F32, device=dev)
+    _launch("rt_gru_cell", dev, mail, s, extra, w_i, w_h, b_i, b_h, out,
+            n, F, M)
+    LAUNCHES["gru_cell"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SAT aggregation
+# ---------------------------------------------------------------------------
+
+
+def _softmax_fam_plain(logits: torch.Tensor, valid: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Masked softmax over the k winners (invalid -> NEG_INF, a row with no
+    valid winner gives zeros) and sum_k attn * v. logits/valid (n, k),
+    v (n, k, D) -> (n, D)."""
+    vf = valid.to(F32)
+    masked = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    mx = masked.max(dim=1, keepdim=True).values
+    e = torch.exp(masked - mx) * vf
+    z = e.sum(dim=1, keepdim=True)
+    attn = torch.where(z > 0, e / z.clamp(min=1e-30), torch.zeros_like(e))
+    return (attn[:, :, None] * v).sum(dim=1)
+
+
+def sat_aggregate_plain(kv: torch.Tensor, dt: torch.Tensor,
+                        logits: torch.Tensor, valid: torch.Tensor,
+                        w_v: torch.Tensor, b_v: torch.Tensor,
+                        bounds: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    B, k, dkv = kv.shape
+    v = kv.reshape(B * k, dkv) @ w_v
+    v = v + lut_encode_plain(dt.reshape(B * k), bounds, table)
+    v = (v + b_v).reshape(B, k, -1)
+    return _softmax_fam_plain(logits, valid, v)
+
+
+def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
+                  valid: torch.Tensor, packed: dict) -> torch.Tensor:
+    """Student EU tail. kv (B, k, Dkv); dt/logits (B, k); valid (B, k)
+    bool. Returns (B, D)."""
+    w_v, b_v, bounds, table = (packed[n] for n in
+                               ("w_v", "b_v", "bounds", "table"))
+    if kv.device.type == "cpu":
+        return sat_aggregate_plain(kv, dt, logits, valid, w_v, b_v, bounds,
+                                   table)
+    B, k, dkv = kv.shape
+    E, D = table.shape
+    dev = kv.device
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"sat_aggregate takes 1..{MAX_K} winners, got {k}")
+    _check_cuda(dev, kv=(kv, F32), dt=(dt, F32), logits=(logits, F32),
+                valid=(valid, BOOL), w_v=(w_v, F32), b_v=(b_v, F32),
+                bounds=(bounds, F32), table=(table, F32))
+    for name, t in (("dt", dt), ("logits", logits), ("valid", valid)):
+        _check_shape(name, t, (B, k))
+    _check_shape("w_v", w_v, (dkv, D))
+    _check_shape("b_v", b_v, (D,))
+    _check_shape("bounds", bounds, (E,))
+    out = torch.empty((B, D), dtype=F32, device=dev)
+    _launch("rt_sat_aggregate", dev, kv, dt, logits, valid, w_v, b_v,
+            bounds, table, out, B, k, dkv, D, E)
+    LAUNCHES["sat_aggregate"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fused single-pass step
+# ---------------------------------------------------------------------------
+
+
+def fused_step_plain(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
+                     sel_logits, sel_valid, memory, mail, edge_feats,
+                     packed: dict):
+    """Phase 0: LUT + GRU over the gathered mail/memory rows of ``vids``,
+    s_prev kept where ``mail_ok`` is False. Phase 1: winners' memory rows
+    (from phase 0 where ``hit >= 0``) || edge rows through W_v, folded LUT
+    rows, masked softmax + FAM, then [s_upd || agg] @ W_out + b_out."""
+    p = packed
+    vids = vids.long()
+    s_prev = memory[vids]
+    extra = lut_encode_plain(dt_mail, p["g_bounds"], p["g_table"])
+    s_new = gru_cell_plain(mail[vids], s_prev, p["w_i"], p["w_h"], p["b_i"],
+                           p["b_h"], extra)
+    s_upd = torch.where(mail_ok[:, None], s_new, s_prev)
+    R, k = sel_ids.shape
+    hitl = hit.long()
+    nbr_s = torch.where((hitl >= 0)[..., None], s_upd[hitl.clamp(min=0)],
+                        memory[sel_ids.long()])
+    nbr_e = edge_feats[sel_eid.long()]
+    kv = torch.cat([nbr_s, nbr_e], dim=-1)
+    v = kv.reshape(R * k, -1) @ p["w_v"]
+    v = v + lut_encode_plain(sel_dt.reshape(R * k), p["s_bounds"],
+                             p["s_table"])
+    v = (v + p["b_v"]).reshape(R, k, -1)
+    agg = _softmax_fam_plain(sel_logits, sel_valid, v)
+    h = torch.cat([s_upd, agg], dim=-1) @ p["w_out"] + p["b_out"]
+    return h, s_upd
+
+
+def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
+               sel_logits, sel_valid, memory, mail, edge_feats,
+               packed: dict):
+    """The post-prune datapath of one batch: winner-row gather, kv
+    projection, folded-LUT rows, masked softmax, FAM, output transform and
+    the GRU memory update.
+
+    ``vids`` (R,) int32; ``sel_ids``/``sel_eid``/``hit`` (R, k) int32 —
+    ``hit[r, j] >= 0`` names the batch row whose updated memory is the
+    committed memory of winner (r, j); ``dt_mail`` (R,) f32, ``mail_ok``
+    (R,) bool; ``sel_dt``/``sel_logits`` (R, k) f32, ``sel_valid`` (R, k)
+    bool; ``memory``/``mail``/``edge_feats`` the device tables, of which
+    only the addressed rows are read. Returns ``(h (R, f_emb),
+    s_upd (R, f_mem))``.
+    """
+    if vids.device.type == "cpu":
+        return fused_step_plain(vids, sel_ids, sel_eid, hit, dt_mail,
+                                mail_ok, sel_dt, sel_logits, sel_valid,
+                                memory, mail, edge_feats, packed)
+    p = packed
+    R, k = sel_ids.shape
+    V, M = memory.shape
+    F = mail.shape[1]
+    Fe = edge_feats.shape[1]
+    E, D = p["s_table"].shape
+    Femb = p["w_out"].shape[1]
+    dev = vids.device
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"fused_step takes 1..{MAX_K} winners, got {k}")
+    _check_cuda(dev, vids=(vids, I32), sel_ids=(sel_ids, I32),
+                sel_eid=(sel_eid, I32), hit=(hit, I32),
+                dt_mail=(dt_mail, F32), mail_ok=(mail_ok, BOOL),
+                sel_dt=(sel_dt, F32), sel_logits=(sel_logits, F32),
+                sel_valid=(sel_valid, BOOL), memory=(memory, F32),
+                mail=(mail, F32), edge_feats=(edge_feats, F32),
+                **{n: (p[n], F32) for n in
+                   ("w_i", "w_h", "b_i", "b_h", "g_bounds", "g_table", "w_v",
+                    "b_v", "s_bounds", "s_table", "w_out", "b_out")})
+    _check_shape("vids", vids, (R,))
+    for name, t in (("sel_eid", sel_eid), ("hit", hit), ("sel_dt", sel_dt),
+                    ("sel_logits", sel_logits), ("sel_valid", sel_valid)):
+        _check_shape(name, t, (R, k))
+    _check_shape("dt_mail", dt_mail, (R,))
+    _check_shape("mail_ok", mail_ok, (R,))
+    _check_shape("mail", mail, (V, F))
+    _check_shape("w_i", p["w_i"], (F, 3 * M))
+    _check_shape("w_h", p["w_h"], (M, 3 * M))
+    _check_shape("g_bounds", p["g_bounds"], (E,))
+    _check_shape("g_table", p["g_table"], (E, 3 * M))
+    _check_shape("w_v", p["w_v"], (M + Fe, D))
+    _check_shape("s_bounds", p["s_bounds"], (E,))
+    _check_shape("w_out", p["w_out"], (M + D, Femb))
+    h = torch.empty((R, Femb), dtype=F32, device=dev)
+    s_upd = torch.empty((R, M), dtype=F32, device=dev)
+    _launch("rt_fused_step", dev, vids, sel_ids, sel_eid, hit, dt_mail,
+            mail_ok, sel_dt, sel_logits, sel_valid, memory, mail, edge_feats,
+            p["w_i"], p["w_h"], p["b_i"], p["b_h"], p["g_bounds"],
+            p["g_table"], p["w_v"], p["b_v"], p["s_bounds"], p["s_table"],
+            p["w_out"], p["b_out"], h, s_upd, R, k, M, F, Fe, D, Femb, E)
+    LAUNCHES["fused_step"] += 1
+    return h, s_upd

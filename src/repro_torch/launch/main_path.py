@@ -1,0 +1,36 @@
+"""The port's main-path configuration, one definition for the scripts that
+run it on the GPU (``chip_smoke.py`` and ``repro_torch.launch.profile``).
+
+A Wikipedia-sized synthetic graph at the dataset's published counts (8,227
+users, 1,000 items, 157,474 edges, 172 edge features), the student
+``sat+lut+np4`` at paper width (f_mem = f_time = f_emb = 100, m_r = 10,
+k = 4, 128 LUT entries), batches of B = 200 edges, random weights from a
+fixed seed.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import pipeline as pl
+from repro_torch.core import tgn
+from repro_torch.data import temporal_graph as tgd
+
+B = 200                      # edges per batch; R = 2B vertex rows
+GRAPH = dict(n_users=8227, n_items=1000, n_edges=157474, f_edge=172)
+WIDTH = 100                  # f_mem = f_time = f_emb
+M_R = 10                     # ring-buffer slots
+K = 4                        # winners kept by prune-then-fetch
+E = 128                      # LUT entries
+SEED = 0
+
+
+def build(device) -> tuple:
+    """``(graph, cfg, params)`` of the main path, params on ``device``."""
+    g = tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0, seed=SEED))
+    cfg = pl.variant_config(f"sat+lut+np{K}", n_nodes=g.cfg.n_nodes,
+                            n_edges=g.n_edges, f_edge=GRAPH["f_edge"],
+                            f_mem=WIDTH, f_time=WIDTH, f_emb=WIDTH, m_r=M_R,
+                            lut_entries=E)
+    params = tgn.init_params(torch.Generator().manual_seed(SEED), cfg,
+                             device)
+    return g, cfg, params

@@ -1,0 +1,83 @@
+"""Where a step's time goes on the GPU: device time by kernel and the
+device's idle share, per kernel tier.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile
+
+Builds the main-path configuration (``launch/main_path.py``), warms each
+tier's StreamingEngine up on 10 batches, then traces the next 20 with
+``torch.profiler`` (device activity only). For each tier (ref, staged,
+fused) it prints the wall time per step (host clock around each step,
+which ends in a synchronize), the device-busy time per step (union of the
+kernel and copy intervals), the idle share, the device operations per
+step, and the 12 kernels that take the most device time. Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.core.stages import KERNEL_TIERS
+from repro_torch.data import stream
+from repro_torch.launch import main_path
+from repro_torch.serving.engine import EngineConfig, StreamingEngine
+from repro_torch.utils import resolve_device
+
+WARMUP = 10
+STEPS = 20
+TOP = 12
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def profile_tier(tier, cfg, params, g, device):
+    eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier), params,
+                          g.edge_feats, device=device)
+    B = main_path.B
+    batches = list(stream.fixed_count(
+        g, B, window=slice(0, (WARMUP + STEPS) * B)))
+    for b in batches[:WARMUP]:
+        eng.process(b)
+    n0 = len(eng.metrics)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches[WARMUP:]:
+            eng.process(b)
+    wall_ms = sum(m["latency_s"] for m in eng.metrics[n0:]) * 1e3 / STEPS
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_ms = busy_us((e.time_range.start, e.time_range.end)
+                      for e in events) / 1e3 / STEPS
+    print(f"profile {tier}: wall {wall_ms:.3f} ms/step, device busy "
+          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{len(events) / STEPS:.1f} device ops/step", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, us) in ranked[:TOP]:
+        print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {name[:90]}")
+
+
+def main():
+    device = resolve_device()
+    g, cfg, params = main_path.build(device)
+    for tier in KERNEL_TIERS:
+        profile_tier(tier, cfg, params, g, device)
+
+
+if __name__ == "__main__":
+    main()

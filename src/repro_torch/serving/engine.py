@@ -1,0 +1,144 @@
+"""Streaming TGNN inference engine — the paper's accelerator, end to end.
+
+Port of ``repro.serving.engine``: a stateful single-stream session over a
+``core.pipeline.TGNPipeline``.
+
+  Edge Parser   -> data.stream.EdgeBatch (chronological, padded, masked)
+  prefetch      -> pinned host buffers, non-blocking copies on a side
+                   stream (distributed/overlap.py), transfer time recorded
+  MUU / EU      -> the pipeline's stages on the chosen kernel tier
+                   (ref | staged | fused)
+  Updater       -> last-write-wins chronological commit
+
+The reference engine is a one-tenant view of its multi-tenant session;
+this one steps its pipeline directly. The engine runs on ``cuda`` unless
+it is given ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.utils import FrozenConfig, resolve_device
+from repro_torch.core import pipeline as pl
+from repro_torch.core import tgn
+from repro_torch.data.stream import EdgeBatch
+from repro_torch.distributed import overlap
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig(FrozenConfig):
+    model: tgn.TGNConfig = tgn.TGNConfig(prune_k=4)     # sat+lut+np4
+    # kernel tier: "ref" | "staged" | "fused" (bools accepted — see
+    # core/stages.KERNEL_TIERS)
+    use_kernels: bool | str = True
+    prefetch: int = 2
+
+
+def _to_tensors(tree, device):
+    """Parameters as tensors on ``device`` (numpy leaves are converted)."""
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree, device=device)
+
+
+class StreamingEngine:
+    """Stateful streaming inference over a chronological edge stream."""
+
+    def __init__(self, cfg: EngineConfig, params: dict, edge_feats,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.pipeline = pl.TGNPipeline(cfg.model, cfg.use_kernels,
+                                       device=self.device)
+        self.params = _to_tensors(params, self.device)
+        self.edge_feats = torch.as_tensor(
+            edge_feats, dtype=torch.float32, device=self.device).contiguous()
+        if (self.edge_feats.ndim != 2
+                or self.edge_feats.shape[1] != cfg.model.f_edge):
+            raise ValueError(f"edge_feats must be (n, {cfg.model.f_edge}), "
+                             f"got {tuple(self.edge_feats.shape)}")
+        # folded LUT tables and kernel packs, prepared once per session
+        self.aux = self.pipeline.prepare(self.params)
+        self.state = self.pipeline.init_state()
+        self.metrics: list[dict] = []
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    @classmethod
+    def from_variant(cls, variant: str, params: dict, edge_feats,
+                     use_kernels=True, prefetch: int = 2, device=None,
+                     **dims) -> "StreamingEngine":
+        """Engine over a registry variant (``"sat+lut+np4"``, ...); ``dims``
+        are TGNConfig table/feature fields."""
+        model = pl.variant_config(variant, **dims)
+        return cls(EngineConfig(model=model, use_kernels=use_kernels,
+                                prefetch=prefetch), params, edge_feats,
+                   device=device)
+
+    def describe(self) -> dict:
+        return self.pipeline.describe()
+
+    def _to_device(self, batch: EdgeBatch) -> overlap.DeviceBatch:
+        """Check the batch's ids against the tables, then issue its copy."""
+        V, n_rows = self.cfg.model.n_nodes, self.edge_feats.shape[0]
+        for name, a, hi in (("src", batch.src, V), ("dst", batch.dst, V),
+                            ("eid", batch.eid, n_rows)):
+            a = np.asarray(a)
+            if a.size and (a.min() < 0 or a.max() >= hi):
+                raise ValueError(f"batch {name} out of range [0, {hi})")
+        return overlap.to_device(batch, self.device, self._copy_stream)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def process(self, batch: EdgeBatch | overlap.DeviceBatch):
+        """Process one batch; returns (emb_src, emb_dst) and records
+        latency/throughput/transfer metrics. ``h2d_s`` is the exposed
+        transfer cost: issue time plus whatever wait the step incurred."""
+        if not isinstance(batch, overlap.DeviceBatch):
+            batch = self._to_device(batch)
+        t0 = time.perf_counter()
+        overlap.join(batch)
+        h2d = batch.enq_s + (time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        out = self.pipeline.step(self.params, self.aux, self.state,
+                                 batch.dev, self.edge_feats)
+        self._sync()
+        dt = time.perf_counter() - t1
+        self.state = out.state
+        n = int(np.asarray(batch.host.valid).sum())
+        self.metrics.append({"latency_s": dt, "edges": n, "h2d_s": h2d,
+                             "throughput_eps": n / dt if dt > 0 else 0.0})
+        return out.emb_src, out.emb_dst
+
+    def run(self, stream: Iterable[EdgeBatch]):
+        """Drive the engine over a stream; the next batches' copies are in
+        flight while each step runs."""
+        for db in overlap.prefetch(iter(stream), self.cfg.prefetch,
+                                   device_put=self._to_device):
+            yield db.host, self.process(db)
+
+    def summary(self) -> dict:
+        """The reference's keys, over every batch after the first (the
+        warm-up batch, which also builds the kernels)."""
+        if not self.metrics:
+            return {}
+        rest = self.metrics[1:]
+        lat = sorted(m["latency_s"] for m in rest)
+        total = sum(lat)
+        edges = sum(m["edges"] for m in rest)
+        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else 0.0
+        return {
+            "batches": len(rest),
+            "mean_latency_ms": (total / len(lat) if lat else 0.0) * 1e3,
+            "p99_latency_ms": p99 * 1e3,
+            "mean_h2d_ms": (sum(m["h2d_s"] for m in rest) / len(rest)
+                            if rest else 0.0) * 1e3,
+            "throughput_eps": float(edges / total) if total > 0 else 0.0,
+        }

@@ -1,0 +1,179 @@
+"""The port's CUDA kernels on the card.
+
+Every test here is marked ``cuda`` and skips where there is no CUDA device.
+On a GPU machine run them with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The module imports neither JAX nor the reference package: it checks each
+kernel against its plain PyTorch version on the same card (the plain
+versions are held against the JAX kernels by tests/test_torch_kernels.py),
+and the staged and fused engines on the card against the ref engine on the
+CPU.
+
+Tolerances: the LUT fetch copies table rows, so it must be exact. The
+products are fp32 on both sides, summed in other orders: rtol = atol =
+1e-5. Over a 10-step trajectory the GRU carries the rounding forward:
+1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import pipeline as pl
+from repro_torch.data import stream, temporal_graph as tgd
+from repro_torch.kernels import ops
+from repro_torch.serving.engine import EngineConfig, StreamingEngine
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
+E = 128
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _cases(dev, R, k, f_mem, f_edge, V, n_edges, seed=0):
+    """Random inputs for all four kernels; dt values include every bucket
+    boundary exactly, the float just below it, 0 and negatives."""
+    rng = np.random.RandomState(seed)
+    M, Fe, D = f_mem, f_edge, f_mem
+    F = 2 * M + Fe
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=dev)
+
+    def f32(*shape, scale=1.0):
+        return t((rng.randn(*shape) * scale).astype(np.float32))
+
+    inner = np.sort(10 ** rng.uniform(0, 7, E - 1)).astype(np.float32)
+    special = np.concatenate([inner, np.nextafter(inner, -np.inf),
+                              [0.0, -3.0]]).astype(np.float32)
+
+    def dts(n):
+        x = (10 ** rng.uniform(0, 7, n)).astype(np.float32)
+        m = min(n, len(special))
+        x[:m] = special[rng.permutation(len(special))[:m]]
+        return x
+
+    valid = rng.rand(R, k) > 0.3
+    valid[0] = False                      # an all-invalid row
+    c = dict(
+        bounds=t(inner), dt=t(dts(R)), sel_dt=t(dts(R * k).reshape(R, k)),
+        g_table=f32(E, 3 * M), s_table=f32(E, D),
+        w_i=f32(F, 3 * M, scale=F ** -0.5), w_h=f32(M, 3 * M, scale=M ** -0.5),
+        b_i=f32(3 * M), b_h=f32(3 * M), mail_rows=f32(R, F), s_rows=f32(R, M),
+        extra=f32(R, 3 * M), w_v=f32(M + Fe, D, scale=(M + Fe) ** -0.5),
+        b_v=f32(D), kv=f32(R, k, M + Fe), logits=f32(R, k, scale=3.0),
+        valid=t(valid), w_out=f32(M + D, D, scale=(M + D) ** -0.5),
+        b_out=f32(D), vids=t(rng.randint(0, V, R).astype(np.int32)),
+        sel_ids=t(rng.randint(0, V, (R, k)).astype(np.int32)),
+        sel_eid=t(rng.randint(0, n_edges, (R, k)).astype(np.int32)),
+        hit=t(np.where(rng.rand(R, k) < 0.4, rng.randint(0, R, (R, k)),
+                       -1).astype(np.int32)),
+        mail_ok=t(rng.rand(R) > 0.3), memory=f32(V, M), mail=f32(V, F),
+        edge_feats=f32(n_edges, Fe))
+    return c
+
+
+SHAPES = [  # R, k, f_mem, f_edge, V, n_edges
+    (23, 4, 16, 24, 40, 60),
+    (400, 4, 100, 172, 9227, 2000),      # the main path's widths
+    (37, 10, 36, 0, 50, 10),             # k = m_r, no edge features
+    (1, 2, 8, 5, 3, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_lut_encode_kernel_matches_plain(cuda_device, shape):
+    c = _cases(cuda_device, *shape)
+    p = ops.pack_lut_params(c["bounds"], c["g_table"])
+    before = ops.LAUNCHES["lut_encode"]
+    got = ops.lut_encode(c["dt"], p)
+    want = ops.lut_encode_plain(c["dt"], p["bounds"], p["table"])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_encode"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("with_extra", [True, False])
+def test_gru_cell_kernel_matches_plain(cuda_device, shape, with_extra):
+    c = _cases(cuda_device, *shape)
+    extra = c["extra"] if with_extra else None
+    p = ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"])
+    got = ops.gru_cell(c["mail_rows"], c["s_rows"], p, extra=extra)
+    want = ops.gru_cell_plain(c["mail_rows"], c["s_rows"], c["w_i"],
+                              c["w_h"], c["b_i"], c["b_h"], extra)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sat_aggregate_kernel_matches_plain(cuda_device, shape):
+    c = _cases(cuda_device, *shape)
+    p = ops.pack_sat_params(c["w_v"], c["b_v"], c["bounds"], c["s_table"])
+    args = (c["kv"], c["sel_dt"], c["logits"], c["valid"])
+    got = ops.sat_aggregate(*args, p)
+    want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"], p["bounds"],
+                                   p["table"])
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[0].any()               # the all-invalid row gives zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_step_kernel_matches_plain(cuda_device, shape):
+    c = _cases(cuda_device, *shape)
+    p = {"w_i": c["w_i"], "w_h": c["w_h"], "b_i": c["b_i"], "b_h": c["b_h"],
+         "g_bounds": ops.sentinel_bounds(c["bounds"], E),
+         "g_table": c["g_table"], "w_v": c["w_v"], "b_v": c["b_v"],
+         "s_bounds": ops.sentinel_bounds(c["bounds"], E),
+         "s_table": c["s_table"], "w_out": c["w_out"], "b_out": c["b_out"]}
+    args = tuple(c[n] for n in ("vids", "sel_ids", "sel_eid", "hit", "dt",
+                                "mail_ok", "sel_dt", "logits", "valid",
+                                "memory", "mail", "edge_feats"))
+    before = ops.LAUNCHES["fused_step"]
+    got_h, got_s = ops.fused_step(*args, p)
+    want_h, want_s = ops.fused_step_plain(*args, p)
+    assert ops.LAUNCHES["fused_step"] == before + 1
+    torch.testing.assert_close(got_s, want_s, **TOL)
+    torch.testing.assert_close(got_h, want_h, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["staged", "fused"])
+def test_engine_tier_on_card_matches_ref_on_cpu(cuda_device, tier):
+    g = tgd.wikipedia_like(n_edges=300)
+    dims = dict(n_nodes=g.cfg.n_nodes, n_edges=g.n_edges, f_edge=172,
+                f_mem=16, f_time=16, f_emb=16, m_r=10)
+    cfg = pl.variant_config("sat+lut+np4", **dims)
+    params = pl.build_pipeline(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(3))
+    engines = [StreamingEngine(EngineConfig(model=cfg, use_kernels=t),
+                               params, g.edge_feats, device=d)
+               for t, d in (("ref", "cpu"), (tier, cuda_device))]
+    ops.reset_launch_counts()
+    for batch in stream.fixed_count(g, 30):
+        (rs, rd), (ks, kd) = (e.process(batch) for e in engines)
+        torch.testing.assert_close(ks.cpu(), rs, **TRAJ_TOL)
+        torch.testing.assert_close(kd.cpu(), rd, **TRAJ_TOL)
+    counts = ops.launch_counts()
+    names = (("fused_step",) if tier == "fused" else
+             ("lut_encode", "gru_cell", "sat_aggregate"))
+    assert all(counts[n] == 10 for n in names), counts
+    ref, kern = (e.state for e in engines)
+    for f in ref._fields:
+        a, b = getattr(kern, f).cpu(), getattr(ref, f)
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, **TRAJ_TOL)
+        else:
+            assert torch.equal(a, b), f
