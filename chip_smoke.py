@@ -7,14 +7,16 @@ without them, and on any failed check. In order it:
 
  1. prints the card's name and power limit (``nvidia-smi``);
  2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-    and prints the build time and the compiler's register report;
+    and prints the build time and each kernel's registers and spills from
+    the compiler's report; a spill in a GRU-update kernel fails the run;
  3. for each kernel, makes inputs at the shapes of the main path (a batch
     of B = 200 edges, so R = 400 vertex rows, at paper width), runs the
     kernel and its plain PyTorch version on the card, prints their
     largest difference against the stated tolerance, and times the kernel,
     the plain version and, where one exists, the single PyTorch call that
     computes the same function: device time from CUDA-graph replays, and
-    the kernel's time per call issued eagerly from Python;
+    the kernel's time per call issued eagerly from Python; gru_cell is
+    also checked at n = 1 and n = 401 rows, off its 16-row tile;
  4. checks, on a small graph, the staged and fused tiers on the card
     against the reference tier on the CPU;
  5. builds a Wikipedia-sized graph (8,227 users, 1,000 items, 157,474
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -175,8 +178,7 @@ def kernel_cases(ops, mp, dev):
     lut_p = ops.pack_lut_params(bounds[:-1], g_table)
     gru_p = ops.pack_gru_params(w_i, w_h, b_i, b_h)
     sat_p = ops.pack_sat_params(w_v, b_v, bounds[:-1], s_table)
-    fused_p = {"w_i": w_i, "w_h": w_h, "b_i": b_i, "b_h": b_h,
-               "g_bounds": bounds, "g_table": g_table, "w_v": w_v,
+    fused_p = {**gru_p, "g_bounds": bounds, "g_table": g_table, "w_v": w_v,
                "b_v": b_v, "s_bounds": bounds, "s_table": s_table,
                "w_out": w_out, "b_out": b_out}
     fused_args = (vids, sel_ids, sel_eid, hit, dt, mail_ok, sel_dt, logits,
@@ -227,6 +229,60 @@ def kernel_cases(ops, mp, dev):
             + 2 * R * (M + D) * WIDTH),
     }
     return cases
+
+
+def check_gru_rows(ops, mp, dev) -> None:
+    """gru_cell against its plain version at the main path's widths and
+    row counts off its 16-row tile."""
+    rng = np.random.RandomState(1)
+    M = mp.WIDTH
+    F = 2 * M + mp.GRAPH["f_edge"]
+
+    def f32(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(
+            np.float32), device=dev)
+
+    w_i, w_h = f32(F, 3 * M, scale=F ** -0.5), f32(M, 3 * M, scale=M ** -0.5)
+    b_i, b_h = f32(3 * M), f32(3 * M)
+    packed = ops.pack_gru_params(w_i, w_h, b_i, b_h)
+    for n in (1, 401):
+        mail, s, extra = f32(n, F), f32(n, M), f32(n, 3 * M)
+        got = ops.gru_cell(mail, s, packed, extra=extra)
+        want = ops.gru_cell_plain(mail, s, w_i, w_h, b_i, b_h, extra)
+        err = float((got - want).abs().max())
+        check(torch.isfinite(got).all().item(), f"gru_cell n={n}: finite")
+        check(torch.allclose(got, want, **KERNEL_TOL),
+              f"gru_cell n={n}: kernel vs plain within {KERNEL_TOL} "
+              f"(max abs err {err:.3g})")
+        print(f"kernel gru_cell at n = {n}: max_abs_err {err:.3g} "
+              f"(tol {KERNEL_TOL})", flush=True)
+
+
+#: kernels that run the tensor-core GRU update; ptxas must not spill them.
+GRU_KERNELS = ("gru_cell_kernel", "fused_muu_kernel")
+
+
+def ptxas_report(log: str) -> dict:
+    """kernel -> (registers, spill store bytes, spill load bytes) from
+    ``nvcc -Xptxas -v`` output; templates get their bool argument."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                "" if k.group(2) is None else
+                f"<{'true' if k.group(3) == '1' else 'false'}>")
+            report[name] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            report[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
 
 
 KERNEL_META = {
@@ -350,11 +406,18 @@ def main() -> int:
     build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(lib, ROOT)}", flush=True)
-    for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    report = ptxas_report((build.BUILD_DIR / "build.log").read_text())
+    for name, (regs, st, ld) in sorted(report.items()):
+        print(f"  ptxas: {name}: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+    for kern in GRU_KERNELS:
+        found = [v for k, v in report.items() if k.startswith(kern + "<")]
+        check(len(found) == 2, f"ptxas reported both {kern} instances")
+        check(all(st == 0 and ld == 0 for _, st, ld in found),
+              f"{kern}: no spills")
 
     kernels = check_kernels(ops, mp, dev)
+    check_gru_rows(ops, mp, dev)
     small_graph_check(pl, tgd)
 
     t0 = time.perf_counter()

@@ -19,42 +19,57 @@
 // global memory (it is an output anyway) and phase 1 reads it through hit.
 //
 // Row gathers. The TPU fetches one row per DMA with an immediate wait.
-// Here every warp owns one row: it reads its own indices once and the
-// block streams the rows through shared memory in 32-wide coalesced pieces
-// (rt::project with a gathering loader), so no neighbour tensor, kv concat
-// or LUT-row tensor is ever written to device memory.
+// Phase 0 runs rt::gru_update (common.cuh), as gru_cell does: its 16 rows
+// are gathered through vids by per-row cp.async copies into a ring of
+// shared-memory stages (TMA cannot gather rows), so the next stage loads
+// while the tensor cores multiply this one; the GRU-folded LUT row of each
+// row's bucket (rt::lut_bucket, one warp per row) is its extra row, and
+// the mail_ok select is the store. Phase 1 keeps the first design: every
+// warp owns one row, reads its own indices once, and the block streams
+// the rows through shared memory in 32-wide coalesced pieces (rt::project
+// with a gathering loader), so no neighbour tensor, kv concat or LUT-row
+// tensor is ever written to device memory.
 //
 // Bound on the H100: operations at the main path's shapes (R = 400, k = 4,
-// f_mem = d = f_emb = 100, f_edge = 172, f_mail = 372): ~113 MFLOP in
-// phase 0 and ~95 MFLOP in phase 1, in fp32, against ~1.5 MB of gathered
-// rows and weights. Phase 1 runs one block per 16 / k batch rows, which
-// holds the whole aggregate row of its batch rows in shared memory for the
-// output transform.
+// f_mem = d = f_emb = 100, f_edge = 172, f_mail = 372): 113.8 MFLOP in
+// phase 0 and ~95 MFLOP in phase 1, in fp32 (3.249 us at 67 TFLOP/s for
+// the step), against ~1.5 MB of gathered rows and weights. Phase 0 runs
+// 13 x 25 = 325 blocks of 128 threads (see rt::gru_update for what that
+// design does about the first one's costs). Phase 1 runs one block per
+// 16 / k batch rows, which holds the whole aggregate row of its batch rows
+// in shared memory for the output transform.
 #include "common.cuh"
 
 namespace {
 
-__global__ void fused_muu_kernel(
+template <bool kVec>
+__global__ void __launch_bounds__(rt::kGruThreads) fused_muu_kernel(
     const int32_t* __restrict__ vids, const float* __restrict__ dt_mail,
     const uint8_t* __restrict__ mail_ok, const float* __restrict__ memory,
-    const float* __restrict__ mail, const float* __restrict__ w_i,
-    const float* __restrict__ w_h, const float* __restrict__ b_i,
-    const float* __restrict__ b_h, const float* __restrict__ g_bounds,
-    const float* __restrict__ g_table, float* __restrict__ s_upd, int R,
-    int M, int F, int E) {
-  const int r = blockIdx.y * rt::kRows + threadIdx.y;
-  const int col0 = blockIdx.x * rt::kCols;
-  const int c = col0 + threadIdx.x;
-  const bool row_ok = r < R;
-  const size_t v = row_ok ? (size_t)vids[r] : 0;
-  const rt::Row mail_row{row_ok ? mail + v * F : nullptr};
-  const rt::Row mem_row{row_ok ? memory + v * M : nullptr};
-  const int bucket = rt::lut_bucket(row_ok ? dt_mail[r] : 0.f, g_bounds, E);
-  const float s_prev = (row_ok && c < M) ? memory[v * M + c] : 0.f;
-  const float s_new =
-      rt::gru_update(mail_row, F, mem_row, M, w_i, w_h, b_i, b_h,
-                     g_table + (size_t)bucket * 3 * M, col0, s_prev);
-  if (row_ok && c < M) s_upd[(size_t)r * M + c] = mail_ok[r] ? s_new : s_prev;
+    const float* __restrict__ mail, const float* __restrict__ w_tc,
+    const float* __restrict__ b_i, const float* __restrict__ b_h,
+    const float* __restrict__ g_bounds, const float* __restrict__ g_table,
+    float* __restrict__ s_upd, int R, int M, int F, int E) {
+  __shared__ int sbucket[rt::kGruRows];
+  const int r0 = blockIdx.y * rt::kGruRows;
+  for (int i = threadIdx.y; i < rt::kGruRows; i += rt::kGruWarps) {
+    const int r = r0 + i;
+    const int b = rt::lut_bucket(r < R ? dt_mail[r] : 0.f, g_bounds, E);
+    if (threadIdx.x == 0) sbucket[i] = b;
+  }
+  __syncthreads();
+  const auto row_of = [&](int i) {
+    const int r = r0 + i;
+    if (r >= R) return rt::GruRow{nullptr, nullptr, nullptr};
+    const size_t v = (size_t)vids[r];
+    return rt::GruRow{mail + v * F, memory + v * M,
+                      g_table + (size_t)sbucket[i] * 3 * M};
+  };
+  const auto store = [&](int i, int c, float s_new, float s_prev) {
+    const int r = r0 + i;
+    s_upd[(size_t)r * M + c] = mail_ok[r] ? s_new : s_prev;
+  };
+  rt::gru_update<kVec>(row_of, F, M, w_tc, b_i, b_h, blockIdx.x, store);
 }
 
 __global__ void fused_eu_kernel(
@@ -117,26 +132,32 @@ __global__ void fused_eu_kernel(
 }  // namespace
 
 // Both phases on one stream; k must be in [1, 16]. s_upd is written by
-// phase 0 and read by phase 1.
+// phase 0 and read by phase 1. w_tc is the packed GRU weight layout of
+// ops.pack_gru_params.
 extern "C" int rt_fused_step(
     const int32_t* vids, const int32_t* sel_ids, const int32_t* sel_eid,
     const int32_t* hit, const float* dt_mail, const uint8_t* mail_ok,
     const float* sel_dt, const float* sel_logits, const uint8_t* sel_valid,
     const float* memory, const float* mail, const float* edge_feats,
-    const float* w_i, const float* w_h, const float* b_i, const float* b_h,
+    const float* w_tc, const float* b_i, const float* b_h,
     const float* g_bounds, const float* g_table, const float* w_v,
     const float* b_v, const float* s_bounds, const float* s_table,
     const float* w_out, const float* b_out, float* h, float* s_upd, int R,
     int k, int M, int F, int Fe, int D, int Femb, int E,
     cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  const dim3 block(rt::kCols, rt::kRows);
-  const dim3 grid0((M + rt::kCols - 1) / rt::kCols,
-                   (R + rt::kRows - 1) / rt::kRows);
-  fused_muu_kernel<<<grid0, block, 0, stream>>>(
-      vids, dt_mail, mail_ok, memory, mail, w_i, w_h, b_i, b_h, g_bounds,
-      g_table, s_upd, R, M, F, E);
-  int err = (int)cudaGetLastError();
+  const bool vec =
+      rt::rows_aligned16(mail, F) && rt::rows_aligned16(memory, M);
+  const auto muu = vec ? fused_muu_kernel<true> : fused_muu_kernel<false>;
+  int err = rt::gru_allow_smem(muu);
+  if (err) return err;
+  const dim3 block0(32, rt::kGruWarps);
+  const dim3 grid0((M + rt::kGruCols - 1) / rt::kGruCols,
+                   (R + rt::kGruRows - 1) / rt::kGruRows);
+  muu<<<grid0, block0, rt::kGruSmemBytes, stream>>>(
+      vids, dt_mail, mail_ok, memory, mail, w_tc, b_i, b_h, g_bounds, g_table,
+      s_upd, R, M, F, E);
+  err = (int)cudaGetLastError();
   if (err) return err;
   const int bpb = rt::kRows / k;
   const size_t smem = (size_t)bpb * D * sizeof(float);
@@ -146,8 +167,9 @@ extern "C" int rt_fused_step(
                                     (int)smem);
     if (err) return err;
   }
+  const dim3 block1(rt::kCols, rt::kRows);
   const dim3 grid1((R + bpb - 1) / bpb);
-  fused_eu_kernel<<<grid1, block, smem, stream>>>(
+  fused_eu_kernel<<<grid1, block1, smem, stream>>>(
       sel_ids, sel_eid, hit, sel_dt, sel_logits, sel_valid, memory,
       edge_feats, s_upd, w_v, b_v, s_bounds, s_table, w_out, b_out, h, R, k,
       M, Fe, D, Femb, E, bpb);

@@ -98,12 +98,64 @@ def pack_lut_params(boundaries: torch.Tensor, table: torch.Tensor) -> dict:
             "table": _f32(table)}
 
 
+#: the GRU tile of rt::gru_update (common.cuh): output columns per block
+#: (kGruCols) and K per pipeline stage (kGruDepth).
+GRU_COLS = 8
+GRU_DEPTH = 64
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives, kept as fp32."""
+    bits = x.to(F32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(F32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo + O(2^-22 |x|), hi and lo TF32 values: the operand
+    split of the 3xTF32 product."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def gru_stages(F: int, M: int) -> tuple[int, int]:
+    """(mail stages, memory stages) of the packed GRU depth."""
+    return -(-F // GRU_DEPTH), -(-M // GRU_DEPTH)
+
+
+def pack_gru_tc(w_i: torch.Tensor, w_h: torch.Tensor) -> torch.Tensor:
+    """The tensor-core layout of the GRU weights that rt::gru_update
+    streams: (NT, S, 2, GRU_DEPTH, 3 * GRU_COLS), for column tile j and
+    depth stage s the TF32 high part, then the low part, of that stage's
+    rows, each row the [r | z | n] columns of the tile. The mail rows
+    (w_i) fill the first Sf stages, the memory rows (w_h) the next Sm;
+    rows past F or M and columns past M are 0."""
+    F, M = w_i.shape[0], w_h.shape[0]
+    sf, sm = gru_stages(F, M)
+    nt = -(-M // GRU_COLS)
+    w = torch.zeros(((sf + sm) * GRU_DEPTH, 3, nt * GRU_COLS), dtype=F32,
+                    device=w_i.device)
+    w[:F, :, :M] = w_i.to(F32).reshape(F, 3, M)
+    w[sf * GRU_DEPTH:sf * GRU_DEPTH + M, :, :M] = w_h.to(F32).reshape(M, 3, M)
+    w = w.reshape(sf + sm, GRU_DEPTH, 3, nt, GRU_COLS).permute(3, 0, 1, 2, 4)
+    hi, lo = tf32_split(w.reshape(nt, sf + sm, GRU_DEPTH, 3 * GRU_COLS))
+    return torch.stack([hi, lo], dim=2).contiguous()
+
+
 def pack_gru_params(w_i: torch.Tensor, w_h: torch.Tensor, b_i: torch.Tensor,
                     b_h: torch.Tensor) -> dict:
     """w_i (F, 3M) raw-mail rows, w_h (M, 3M), biases (3M,); gate blocks
-    [r | z | n] at f_mem strides, as in the core layout."""
+    [r | z | n] at f_mem strides, as in the core layout. The plain
+    versions read these; the kernels read ``w_tc`` (``pack_gru_tc``) and
+    the biases."""
     return {"w_i": _f32(w_i), "w_h": _f32(w_h), "b_i": _f32(b_i),
-            "b_h": _f32(b_h)}
+            "b_h": _f32(b_h), "w_tc": pack_gru_tc(w_i, w_h)}
+
+
+def _check_gru_tc(w_tc: torch.Tensor, F: int, M: int) -> None:
+    sf, sm = gru_stages(F, M)
+    _check_shape("w_tc", w_tc, (-(-M // GRU_COLS), sf + sm, 2, GRU_DEPTH,
+                                3 * GRU_COLS))
 
 
 def pack_sat_params(w_v: torch.Tensor, b_v: torch.Tensor,
@@ -198,8 +250,9 @@ def gru_cell(mail: torch.Tensor, s: torch.Tensor, packed: dict,
     n, F = mail.shape
     M = s.shape[1]
     dev = mail.device
-    tensors = dict(mail=(mail, F32), s=(s, F32), w_i=(w_i, F32),
-                   w_h=(w_h, F32), b_i=(b_i, F32), b_h=(b_h, F32))
+    w_tc = packed["w_tc"]
+    tensors = dict(mail=(mail, F32), s=(s, F32), w_tc=(w_tc, F32),
+                   b_i=(b_i, F32), b_h=(b_h, F32))
     if extra is not None:
         tensors["extra"] = (extra, F32)
         _check_shape("extra", extra, (n, 3 * M))
@@ -207,11 +260,12 @@ def gru_cell(mail: torch.Tensor, s: torch.Tensor, packed: dict,
     _check_shape("s", s, (n, M))
     _check_shape("w_i", w_i, (F, 3 * M))
     _check_shape("w_h", w_h, (M, 3 * M))
+    _check_gru_tc(w_tc, F, M)
     _check_shape("b_i", b_i, (3 * M,))
     _check_shape("b_h", b_h, (3 * M,))
     out = torch.empty((n, M), dtype=F32, device=dev)
-    _launch("rt_gru_cell", dev, mail, s, extra, w_i, w_h, b_i, b_h, out,
-            n, F, M)
+    _launch("rt_gru_cell", dev, mail, s, extra, w_tc, b_i, b_h, out, n, F,
+            M)
     LAUNCHES["gru_cell"] += 1
     return out
 
@@ -346,7 +400,7 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
                 sel_valid=(sel_valid, BOOL), memory=(memory, F32),
                 mail=(mail, F32), edge_feats=(edge_feats, F32),
                 **{n: (p[n], F32) for n in
-                   ("w_i", "w_h", "b_i", "b_h", "g_bounds", "g_table", "w_v",
+                   ("w_tc", "b_i", "b_h", "g_bounds", "g_table", "w_v",
                     "b_v", "s_bounds", "s_table", "w_out", "b_out")})
     _check_shape("vids", vids, (R,))
     for name, t in (("sel_eid", sel_eid), ("hit", hit), ("sel_dt", sel_dt),
@@ -357,6 +411,9 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     _check_shape("mail", mail, (V, F))
     _check_shape("w_i", p["w_i"], (F, 3 * M))
     _check_shape("w_h", p["w_h"], (M, 3 * M))
+    _check_gru_tc(p["w_tc"], F, M)
+    _check_shape("b_i", p["b_i"], (3 * M,))
+    _check_shape("b_h", p["b_h"], (3 * M,))
     _check_shape("g_bounds", p["g_bounds"], (E,))
     _check_shape("g_table", p["g_table"], (E, 3 * M))
     _check_shape("w_v", p["w_v"], (M + Fe, D))
@@ -366,7 +423,7 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     s_upd = torch.empty((R, M), dtype=F32, device=dev)
     _launch("rt_fused_step", dev, vids, sel_ids, sel_eid, hit, dt_mail,
             mail_ok, sel_dt, sel_logits, sel_valid, memory, mail, edge_feats,
-            p["w_i"], p["w_h"], p["b_i"], p["b_h"], p["g_bounds"],
+            p["w_tc"], p["b_i"], p["b_h"], p["g_bounds"],
             p["g_table"], p["w_v"], p["b_v"], p["s_bounds"], p["s_table"],
             p["w_out"], p["b_out"], h, s_upd, R, k, M, F, Fe, D, Femb, E)
     LAUNCHES["fused_step"] += 1

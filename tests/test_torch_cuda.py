@@ -88,6 +88,12 @@ SHAPES = [  # R, k, f_mem, f_edge, V, n_edges
     (37, 10, 36, 0, 50, 10),             # k = m_r, no edge features
     (1, 2, 8, 5, 3, 4),
 ]
+# and, for the GRU update's 16-row x 8-column tiles, row counts off the
+# tile, f_mem off the column tile and f_mail = 2 f_mem + 5, not a multiple
+# of 4 (rows not 16-byte aligned: the 4-byte copy path), over tables of
+# n // 3 vertices (vids repeat)
+GRU_SHAPES = SHAPES + [(n, 4, f_mem, 5, max(2, n // 3), 7)
+                       for n in (1, 17, 401) for f_mem in (8, 36, 100)]
 
 
 @pytest.mark.cuda
@@ -104,7 +110,7 @@ def test_lut_encode_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", GRU_SHAPES)
 @pytest.mark.parametrize("with_extra", [True, False])
 def test_gru_cell_kernel_matches_plain(cuda_device, shape, with_extra):
     c = _cases(cuda_device, *shape)
@@ -113,6 +119,27 @@ def test_gru_cell_kernel_matches_plain(cuda_device, shape, with_extra):
     got = ops.gru_cell(c["mail_rows"], c["s_rows"], p, extra=extra)
     want = ops.gru_cell_plain(c["mail_rows"], c["s_rows"], c["w_i"],
                               c["w_h"], c["b_i"], c["b_h"], extra)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_gru_cell_kernel_unaligned_rows_at_an_aligned_width(cuda_device):
+    """F and M multiples of 4, but the tensors start 4 bytes past a
+    16-byte boundary: the kernel must take the 4-byte copy path."""
+    c = _cases(cuda_device, 45, 2, 100, 172, 3, 4)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0
+        return y
+
+    mail, s = shifted(c["mail_rows"]), shifted(c["s_rows"])
+    p = ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"])
+    got = ops.gru_cell(mail, s, p, extra=c["extra"])
+    want = ops.gru_cell_plain(c["mail_rows"], c["s_rows"], c["w_i"],
+                              c["w_h"], c["b_i"], c["b_h"], c["extra"])
     torch.testing.assert_close(got, want, **TOL)
 
 
@@ -130,10 +157,10 @@ def test_sat_aggregate_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", GRU_SHAPES)
 def test_fused_step_kernel_matches_plain(cuda_device, shape):
     c = _cases(cuda_device, *shape)
-    p = {"w_i": c["w_i"], "w_h": c["w_h"], "b_i": c["b_i"], "b_h": c["b_h"],
+    p = {**ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"]),
          "g_bounds": ops.sentinel_bounds(c["bounds"], E),
          "g_table": c["g_table"], "w_v": c["w_v"], "b_v": c["b_v"],
          "s_bounds": ops.sentinel_bounds(c["bounds"], E),
