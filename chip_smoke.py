@@ -8,15 +8,16 @@ without them, and on any failed check. In order it:
  1. prints the card's name and power limit (``nvidia-smi``);
  2. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
     and prints the build time and each kernel's registers and spills from
-    the compiler's report; a spill in a GRU-update kernel fails the run;
+    the compiler's report; a spill in a tensor-core kernel fails the run;
  3. for each kernel, makes inputs at the shapes of the main path (a batch
     of B = 200 edges, so R = 400 vertex rows, at paper width), runs the
     kernel and its plain PyTorch version on the card, prints their
     largest difference against the stated tolerance, and times the kernel,
     the plain version and, where one exists, the single PyTorch call that
     computes the same function: device time from CUDA-graph replays, and
-    the kernel's time per call issued eagerly from Python; gru_cell is
-    also checked at n = 1 and n = 401 rows, off its 16-row tile;
+    the kernel's time per call issued eagerly from Python; for fused_step
+    it also prints each phase's bound; gru_cell is also checked at n = 1
+    and n = 401 rows, off its 16-row tile;
  4. checks, on a small graph, the staged and fused tiers on the card
     against the reference tier on the CPU;
  5. builds a Wikipedia-sized graph (8,227 users, 1,000 items, 157,474
@@ -132,7 +133,8 @@ def nbytes(*tensors) -> int:
 def kernel_cases(ops, mp, dev):
     """Inputs at the shapes of the main path ``mp`` (launch/main_path.py),
     one case per kernel: name -> (kernel call, plain call, library call or
-    None, bytes, flops)."""
+    None, bytes, flops), and the (bytes, flops) of each of fused_step's
+    phases."""
     rng = np.random.RandomState(0)
     R, M, Fe, D = 2 * mp.B, mp.WIDTH, mp.GRAPH["f_edge"], mp.WIDTH
     K, E, WIDTH = mp.K, mp.E, mp.WIDTH
@@ -178,13 +180,27 @@ def kernel_cases(ops, mp, dev):
     lut_p = ops.pack_lut_params(bounds[:-1], g_table)
     gru_p = ops.pack_gru_params(w_i, w_h, b_i, b_h)
     sat_p = ops.pack_sat_params(w_v, b_v, bounds[:-1], s_table)
-    fused_p = {**gru_p, "g_bounds": bounds, "g_table": g_table, "w_v": w_v,
-               "b_v": b_v, "s_bounds": bounds, "s_table": s_table,
-               "w_out": w_out, "b_out": b_out}
+    fused_p = ops.pack_fused_params(
+        dict(w_i=w_i, w_h=w_h, b_i=b_i, b_h=b_h),
+        dict(w_v=w_v, b_v=b_v, w_out=w_out, b_out=b_out),
+        dict(boundaries=bounds[:-1], table=g_table),
+        dict(boundaries=bounds[:-1], table=s_table), F, M, Fe)
     fused_args = (vids, sel_ids, sel_eid, hit, dt, mail_ok, sel_dt, logits,
                   valid, memory, mail, edge_feats)
     w_ih, w_hh = w_i.T.contiguous(), w_h.T.contiguous()
     cold = sel_ids[hit < 0]
+    phases = (   # (bytes, flops) of phase 0 (MUU) and phase 1 (EU)
+        (nbytes(vids, dt, mail_ok, w_i, w_h, b_i, b_h, bounds)
+         + used_rows(vids, M + F)
+         + used_rows(bucket_rows(dt, bounds), 3 * M) + R * M * 4,
+         2 * R * (F + M) * 3 * M + 12 * R * M + R * E),
+        (nbytes(sel_ids, sel_eid, hit, sel_dt, logits, valid, bounds, w_v,
+                b_v, w_out, b_out)
+         + used_rows(cold, M) + used_rows(sel_eid, Fe)
+         + used_rows(bucket_rows(sel_dt, bounds), D) + R * M * 4
+         + R * WIDTH * 4,
+         2 * R * K * (M + Fe) * D + R * K * E + 4 * R * K * D
+         + 2 * R * (M + D) * WIDTH))
     cases = {
         "lut_encode": (
             lambda: ops.lut_encode(dt, lut_p),
@@ -216,19 +232,10 @@ def kernel_cases(ops, mp, dev):
             lambda: ops.fused_step(*fused_args, fused_p),
             lambda: ops.fused_step_plain(*fused_args, fused_p),
             None,
-            nbytes(vids, sel_ids, sel_eid, hit, dt, mail_ok, sel_dt, logits,
-                   valid, w_i, w_h, b_i, b_h, bounds, bounds, w_v, b_v,
-                   w_out, b_out)
-            + used_rows(vids, M + F) + used_rows(cold, M)
-            + used_rows(sel_eid, Fe)
-            + used_rows(bucket_rows(dt, bounds), 3 * M)
-            + used_rows(bucket_rows(sel_dt, bounds), D)
-            + R * (M + WIDTH) * 4,
-            2 * R * (F + M) * 3 * M + 12 * R * M
-            + 2 * R * K * (M + Fe) * D + R * (K + 1) * E + 4 * R * K * D
-            + 2 * R * (M + D) * WIDTH),
+            phases[0][0] + phases[1][0] - R * M * 4,   # s_upd counted once
+            phases[0][1] + phases[1][1]),
     }
-    return cases
+    return cases, phases
 
 
 def check_gru_rows(ops, mp, dev) -> None:
@@ -258,8 +265,10 @@ def check_gru_rows(ops, mp, dev) -> None:
               f"(tol {KERNEL_TOL})", flush=True)
 
 
-#: kernels that run the tensor-core GRU update; ptxas must not spill them.
-GRU_KERNELS = ("gru_cell_kernel", "fused_muu_kernel")
+#: kernels that run tensor-core products (rt::gru_update, rt::tc_tile);
+#: ptxas must not spill them.
+TC_KERNELS = ("gru_cell_kernel", "fused_muu_kernel", "sat_aggregate_kernel",
+              "fused_eu_kernel", "fused_out_kernel")
 
 
 def ptxas_report(log: str) -> dict:
@@ -299,8 +308,8 @@ KERNEL_META = {
 
 def check_kernels(ops, mp, dev) -> dict:
     rows = {}
-    for name, (kern, plain, lib, nb, flops) in kernel_cases(
-            ops, mp, dev).items():
+    cases, phases = kernel_cases(ops, mp, dev)
+    for name, (kern, plain, lib, nb, flops) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(got, tuple) else \
@@ -324,6 +333,10 @@ def check_kernels(ops, mp, dev) -> dict:
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                           call_ms=call_ms)
+    for i, (nb, flops) in enumerate(phases):
+        b_ms, b_by = bound(nb, flops)
+        print(f"kernel fused_step phase {i}: bound {b_ms * 1e3:.3f} us "
+              f"({b_by}: {nb} B, {flops} flop)", flush=True)
     return rows
 
 
@@ -410,7 +423,7 @@ def main() -> int:
     for name, (regs, st, ld) in sorted(report.items()):
         print(f"  ptxas: {name}: {regs} registers, spill stores {st} B, "
               f"spill loads {ld} B")
-    for kern in GRU_KERNELS:
+    for kern in TC_KERNELS:
         found = [v for k, v in report.items() if k.startswith(kern + "<")]
         check(len(found) == 2, f"ptxas reported both {kern} instances")
         check(all(st == 0 and ld == 0 for _, st, ld in found),

@@ -31,7 +31,7 @@ SIGNATURES = {
     "rt_lut_encode": [_P] * 4 + [_I] * 3 + [_P],
     "rt_gru_cell": [_P] * 7 + [_I] * 3 + [_P],
     "rt_sat_aggregate": [_P] * 9 + [_I] * 5 + [_P],
-    "rt_fused_step": [_P] * 25 + [_I] * 8 + [_P],
+    "rt_fused_step": [_P] * 26 + [_I] * 8 + [_P],
 }
 
 

@@ -2,21 +2,26 @@
 // and fused tiers run the same arithmetic and cannot drift apart:
 //
 //   lut_bucket   LUT bucketing (lut_encode, sat_aggregate, fused_step), the
-//                counterpart of repro/kernels/lut_time_encode.py::lut_rows
-//   project      a shared-memory tiled fp32 row-block x weight product
-//                (sat_aggregate, fused_step phase 1)
+//                counterpart of repro/kernels/lut_time_encode.py::lut_rows;
+//                lut_buckets buckets several rows at once
 //   gru_gate     the GRU gate tail
 //   gru_update   the GRU update of a 16-row x 8-column output tile on the
 //                tensor cores (gru_cell, fused_step phase 0); it replaces
 //                the GRU body of repro/kernels/gru_cell.py::gru_cell_pallas
 //                and of phase 0 of fused_step.py::fused_step_pallas
-//   softmax_fam  masked softmax over the k winners and the weighted sum
-//                (sat_aggregate, fused_step phase 1)
+//   tc_tile      a row tile of [a || b] @ W on the tensor cores, the rows
+//                gathered from two sources (fused_step's output transform,
+//                and sat_eu below)
+//   sat_eu       the SAT Embedding Unit of a tile of whole batch rows:
+//                v = kv @ W_v + folded LUT row + b_v, masked softmax, FAM
+//                (sat_aggregate, fused_step phase 1); it replaces the body
+//                of repro/kernels/sat_aggregate.py::sat_aggregate_pallas
+//                and phase 1 (_eu) of fused_step.py::fused_step_pallas
 //
-// Thread layout of the project-based kernels: blockDim = (kCols, kRows) =
-// (32, 16). A warp is one row (threadIdx.y); its lanes are 32 consecutive
-// output columns (threadIdx.x), so row-wise loads and stores are coalesced.
-// gru_update runs on blockDim = (32, kGruWarps) and is described with it.
+// lut_encode runs on blockDim = (kCols, kRows) = (32, 16): a warp is one
+// row (threadIdx.y), its lanes 32 consecutive columns (threadIdx.x). The
+// tensor-core functions run on blockDim = (32, warps) and are described
+// with them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,9 +30,8 @@
 
 namespace rt {
 
-constexpr int kCols = 32;   // output columns per tile (= warp lanes)
-constexpr int kRows = 16;   // rows per block (= warps per block)
-constexpr int kDepth = 32;  // depth (K) of one shared-memory tile
+constexpr int kCols = 32;   // lut_encode: columns a pass (= warp lanes)
+constexpr int kRows = 16;   // lut_encode: rows a block (= warps a block)
 constexpr float kNegInf = -1e30f;  // repro_torch.utils.NEG_INF
 
 // bucket(dt) = #(bounds <= dt) over the E bounds (the last is the +inf
@@ -35,72 +39,35 @@ constexpr float kNegInf = -1e30f;  // repro_torch.utils.NEG_INF
 // whole warp calls it with the same dt; each lane counts E/32 bounds and a
 // butterfly sum gives every lane the total. The row fetch that follows is
 // an indexed load of one table row (the TPU did it as a one-hot matmul).
+// lut_buckets does R rows at once: each bound is loaded once for all of
+// them, and their R sums interleave.
+template <int R>
+__device__ __forceinline__ void lut_buckets(const float (&dt)[R],
+                                            const float* __restrict__ bounds,
+                                            int E, int (&bucket)[R]) {
+  int c[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) c[r] = 0;
+  for (int e = threadIdx.x; e < E; e += kCols) {
+    const float b = bounds[e];
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] += (dt[r] >= b) ? 1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) c[r] += __shfl_xor_sync(0xffffffffu, c[r], o);
+#pragma unroll
+  for (int r = 0; r < R; ++r) bucket[r] = min(c[r], E - 1);
+}
+
 __device__ __forceinline__ int lut_bucket(float dt,
                                           const float* __restrict__ bounds,
                                           int E) {
-  int c = 0;
-  for (int e = threadIdx.x; e < E; e += kCols) c += (dt >= bounds[e]) ? 1 : 0;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
-  return min(c, E - 1);
-}
-
-// Loaders give element k of the calling thread's own row (threadIdx.y).
-// A null row pointer reads zeros (rows past the end of the batch).
-struct Row {
-  const float* p;
-  __device__ __forceinline__ float operator()(int k) const {
-    return p ? p[k] : 0.f;
-  }
-};
-
-// The row [a || b] with |a| = na, without materializing the concat.
-struct Concat2 {
-  const float* a;
-  int na;
-  const float* b;
-  __device__ __forceinline__ float operator()(int k) const {
-    if (!a) return 0.f;
-    return k < na ? a[k] : b[k - na];
-  }
-};
-
-// acc[g] = sum_k x(k) * W[k * ldw + g * gstride + col0 + threadIdx.x] for
-// g < G, over depth K: the G gate blocks of one 32-column tile for the 16
-// rows of the block. Both operands pass through shared memory in
-// kDepth-deep tiles; the weight tile is read once per block and reused by
-// all 16 rows. Columns at or past ncols read zero weights. Every thread of
-// the block must call it (it synchronizes).
-template <int G, class Load>
-__device__ __forceinline__ void project(const Load& x, int K,
-                                        const float* __restrict__ W, int ldw,
-                                        int gstride, int col0, int ncols,
-                                        float (&acc)[G]) {
-  __shared__ float sx[kRows][kDepth + 1];
-  __shared__ float sw[kDepth][G * kCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = col0 + tx;
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kDepth) {
-    sx[ty][tx] = (k0 + tx < K) ? x(k0 + tx) : 0.f;
-    for (int kk = ty; kk < kDepth; kk += kRows) {
-      const int k = k0 + kk;
-      const bool in = (k < K) && (col < ncols);
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        sw[kk][g * kCols + tx] =
-            in ? W[(size_t)k * ldw + g * gstride + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float xv = sx[ty][kk];
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] += xv * sw[kk][g * kCols + tx];
-    }
-    __syncthreads();
-  }
+  const float d[1] = {dt};
+  int b[1];
+  lut_buckets<1>(d, bounds, E, b);
+  return b[0];
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -422,26 +389,380 @@ inline int gru_allow_smem(Kernel* kernel) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGruSmemBytes);
 }
 
-// Masked softmax over the k winners of one row, then sum_j attn_j * v_j.
-// valid_j == 0 masks slot j to kNegInf; a row with no valid slot gives 0.
-// v points at v_0 of this thread's column; v_j is at v[j * vstride].
-__device__ __forceinline__ float softmax_fam(const float* __restrict__ logits,
-                                             const uint8_t* __restrict__ valid,
-                                             int k, const float* v,
-                                             int vstride) {
-  float mx = kNegInf;
-  for (int j = 0; j < k; ++j)
-    mx = fmaxf(mx, valid[j] ? logits[j] : kNegInf);
-  float z = 0.f;
-  for (int j = 0; j < k; ++j) z += valid[j] ? expf(logits[j] - mx) : 0.f;
-  if (!(z > 0.f)) return 0.f;
-  const float zc = fmaxf(z, 1e-30f);
-  float out = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const float e = valid[j] ? expf(logits[j] - mx) : 0.f;
-    out += (e / zc) * v[j * vstride];
+// ---------------------------------------------------------------------------
+// Row-tile products on the tensor cores, and the SAT Embedding Unit
+// ---------------------------------------------------------------------------
+//
+// tc_tile computes one kRows x kCols tile of [a || b] @ W: kRows rows,
+// each the concatenation of an na-float row a and an nb-float row b, both
+// gathered through a row_of callback, so that no concatenated or gathered
+// tensor is ever written to device memory. It is the machinery of
+// rt::gru_update with one accumulator a column: mma.sync m16n8k8 TF32 in
+// the 3xTF32 scheme (a_lo b_hi + a_hi b_lo + a_hi b_hi, fp32 accumulation,
+// which keeps fp32's accuracy), a kStages-deep cp.async ring of depth
+// stages with one __syncthreads a stage, per-row copies of 16 bytes where
+// every row is 16-byte aligned (kVec) and 4 bytes otherwise, ragged tails
+// read as zeros through the copy's src-size. The a rows are padded to
+// whole stages, then the b rows, so that each stage reads one source. The
+// packer (ops.pack_rows_tc) lays W out as (NT, S, 2, kDepth, kCols): for
+// column tile j and stage s, the TF32 high part then the low part of that
+// stage's rows; padded rows and columns are 0. The kWarps warps of a block
+// split each stage's K (kKSteps k8 steps each); each warp holds kMTiles x
+// kNTiles m16n8 accumulators and parks them in shared memory, where the
+// caller sums the warps' parts as it reads them.
+//
+// sat_eu runs tc_tile over the neighbour rows of whole batch rows: an m16
+// tile holds floor(16 / k) batch rows of k winners each (4 at k = 4; 2 and
+// 4 zero rows at k = 6), so the softmax over a batch row's winners never
+// leaves the block. Its epilogue adds each row's folded-LUT row
+// (rt::lut_buckets, while the first stages load) and b_v to the tile and
+// sums it over each batch row's winners with their softmax weights: the
+// (rows, k, D) tensor v never leaves the SM.
+//
+// Bound on the H100: operations. At the main path's shapes (1,600
+// neighbour rows, K = 272, D = 100; R = 400, K = 200, f_emb = 100 for the
+// output transform) the EU does 2 * 1600 * 272 * 100 + 2 * 400 * 200 *
+// 100 = 103 MFLOP, 1.55 us at fp32's 67 TFLOP/s, against ~2 MB of rows and
+// weights. What the design does about the first design's costs
+// (rt::project: one FMA per shared-memory load, the rows gathered again
+// for every 32-column tile, one load round between two barriers with
+// nothing in flight, 100 blocks of 512 threads): the products run on the
+// tensor cores, the rows are gathered once per column tile, and the
+// copies run kStages - 1 stages ahead of the products. The tile shapes
+// come from a sweep on the H100 (launch/gru_tiles.py; times in PERF.md):
+// an EU block of 32 rows (8 batch rows at k = 4) x 56 columns with 8
+// warps, 100 blocks at the main path's shapes; tiles of all 104 columns
+// stream more of W_v into each block and were slower, smaller ones
+// stream W_v into more blocks and were slower too. Per-block timestamps
+// showed each block's time spread over latency-bound phases (the first
+// stages, the setup of the epilogue's inputs, the main loop, the
+// epilogue), so the design keeps every global load of the epilogue off
+// its path: a thread's copy addresses are found once, the softmax
+// weights, buckets and LUT rows are made while the first stages load,
+// and the epilogue is one pass over shared memory.
+//
+// Why mma.sync and not wgmma: wgmma takes 64-row tiles, which leaves 25
+// tiles over the 1,600 neighbour rows and 7 over R = 400, too few blocks
+// for 132 SMs.
+
+template <int MT, int NT, int W, int KS, int ST>
+struct TcShape {
+  static constexpr int kMTiles = MT;           // m16 row tiles a block
+  static constexpr int kNTiles = NT;           // n8 column tiles a block
+  static constexpr int kWarps = W;             // split each stage's K
+  static constexpr int kKSteps = KS;           // k8 steps a warp a stage
+  static constexpr int kStages = ST;           // cp.async ring depth
+  static constexpr int kRows = 16 * MT;
+  static constexpr int kCols = 8 * NT;
+  static constexpr int kDepth = 8 * W * KS;    // K per stage
+  static constexpr int kThreads = 32 * W;
+  // A and B rows in shared memory: 16-byte aligned, and the fragment loads
+  // of a warp hit 32 distinct banks
+  static constexpr int kLda = kDepth + 4;
+  static constexpr int kLdb = kCols + (NT % 2 ? 0 : 8);
+  static constexpr int kStageW = 2 * kDepth * kCols;  // packed hi + lo
+  static constexpr int kStageF = kRows * kLda + 2 * kDepth * kLdb;
+  static constexpr int kRed = W * kRows * kCols;      // split-K sums
+  static constexpr int kSmemBytes =
+      4 * (ST * kStageF > kRed ? ST * kStageF : kRed);  // dynamic
+  static_assert(ST >= 2, "the ring needs two stages");
+  // a block has 227 KB; leave 16 KB for the caller's static arrays
+  static_assert(kSmemBytes <= 211 * 1024, "shared memory of one block");
+};
+
+// The EU's tile (sat_aggregate, fused_step phase 1) and the output
+// transform's (fused_step); ops.EU_* and ops.OUT_* give the packer the
+// same depth and columns.
+constexpr int kEuMTiles = 2;
+constexpr int kEuNTiles = 7;
+constexpr int kEuWarps = 8;
+constexpr int kEuKSteps = 1;
+constexpr int kEuStages = 4;
+using EuShape =
+    TcShape<kEuMTiles, kEuNTiles, kEuWarps, kEuKSteps, kEuStages>;
+constexpr int kOutMTiles = 1;
+constexpr int kOutNTiles = 1;
+constexpr int kOutWarps = 8;
+constexpr int kOutKSteps = 1;
+constexpr int kOutStages = 3;
+using OutShape =
+    TcShape<kOutMTiles, kOutNTiles, kOutWarps, kOutKSteps, kOutStages>;
+
+// One row of a tc_tile: a (na floats) || b (nb floats). a null: zeros.
+struct TcRow {
+  const float* a;
+  const float* b;
+};
+
+// Lets a tc_tile kernel of shape S take S::kSmemBytes of dynamic shared
+// memory. Always asked: the kernel's static arrays count against the
+// 48 KB a block gets without it.
+template <class S, class Kernel>
+inline int tc_allow_smem(Kernel* kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+}
+
+// Tile (row block, column tile ct) of [a || b] @ W. Every thread of a
+// (32, S::kWarps) block calls it; the launch gives it S::kSmemBytes of
+// dynamic shared memory (tc_allow_smem). row_of(i) gives block row i.
+// pre() is called by every thread once the first stages are in flight.
+// Returns the warps' split-K partial sums in shared memory, visible to
+// the whole block, which the caller reduces where it reads them
+// (tc_sum): one pass over the tile and one barrier fewer. They stay valid
+// until the caller's kernel ends. kVec: every row pointer is 16-byte
+// aligned and na, nb are multiples of 4.
+template <class S, bool kVec, class RowOf, class Pre>
+__device__ __forceinline__ const float* tc_tile(
+    const RowOf& row_of, int na, int nb, const float* __restrict__ w_tc,
+    int ct, const Pre& pre) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ TcRow srow[S::kRows];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * 32 + lane;
+  for (int i = tid; i < S::kRows; i += S::kThreads) srow[i] = row_of(i);
+  __syncthreads();
+
+  const int sa = (na + S::kDepth - 1) / S::kDepth;        // a stages
+  const int nst = sa + (nb + S::kDepth - 1) / S::kDepth;  // all stages
+  const float* w_tile = w_tc + (size_t)ct * nst * S::kStageW;
+
+  // A thread's 16-byte chunks of a stage are the same every stage: its
+  // weight chunks (u-th at tid + u * kThreads) and row chunks, with their
+  // shared-memory offsets and rows, are found once.
+  constexpr int kWChunks = S::kStageW / 4;
+  constexpr int kAChunks = S::kRows * S::kDepth / 4;
+  constexpr int kWPer = (kWChunks + S::kThreads - 1) / S::kThreads;
+  constexpr int kAPer = (kAChunks + S::kThreads - 1) / S::kThreads;
+  int wdst[kWPer], adst[kAPer], akc[kAPer];
+  TcRow arow[kAPer];
+#pragma unroll
+  for (int u = 0; u < kWPer; ++u) {
+    const int c = tid + u * S::kThreads;
+    wdst[u] = c < kWChunks
+                  ? (c / (S::kCols / 4)) * S::kLdb + 4 * (c % (S::kCols / 4))
+                  : -1;
   }
-  return out;
+#pragma unroll
+  for (int u = 0; u < kAPer; ++u) {
+    const int c = tid + u * S::kThreads;
+    const int i = c / (S::kDepth / 4);
+    akc[u] = 4 * (c % (S::kDepth / 4));
+    adst[u] = c < kAChunks ? i * S::kLda + akc[u] : -1;
+    arow[u] = c < kAChunks ? srow[i] : TcRow{nullptr, nullptr};
+  }
+
+  auto load = [&](int s) {
+    float* xa = smem + (s % S::kStages) * S::kStageF;
+    float* xb = xa + S::kRows * S::kLda;
+    const float* ws = w_tile + (size_t)s * S::kStageW;
+#pragma unroll
+    for (int u = 0; u < kWPer; ++u)
+      if (wdst[u] >= 0)
+        cp_async16(xb + wdst[u], ws + 4 * (tid + u * S::kThreads), 16);
+    const bool first = s < sa;
+    const int k0 = (first ? s : s - sa) * S::kDepth;
+    const int lim = (first ? na : nb) - k0;             // valid K here
+#pragma unroll
+    for (int u = 0; u < kAPer; ++u) {
+      if (adst[u] < 0) continue;
+      const int n = arow[u].a ? min(max(lim - akc[u], 0), 4) : 0;
+      const float* src =
+          n ? (first ? arow[u].a : arow[u].b) + k0 + akc[u] : w_tc;
+      float* dst = xa + adst[u];
+      if (kVec) {
+        cp_async16(dst, src, 4 * n);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cp_async4(dst + e, e < n ? src + e : w_tc, e < n ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[S::kMTiles][S::kNTiles][4];
+#pragma unroll
+  for (int m = 0; m < S::kMTiles; ++m)
+#pragma unroll
+    for (int n = 0; n < S::kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
+  }
+  pre();
+  const int g = lane >> 2, t = lane & 3;
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<S::kStages - 2>();
+    __syncthreads();   // stage s landed; stage s - 1's buffer is free
+    if (s + S::kStages - 1 < nst) load(s + S::kStages - 1);
+    cp_async_commit();
+
+    const float* xa = smem + (s % S::kStages) * S::kStageF;
+    const float* xb = xa + S::kRows * S::kLda;
+#pragma unroll
+    for (int j = 0; j < S::kKSteps; ++j) {
+      const int kk = 8 * (warp * S::kKSteps + j);     // this warp's k8 slice
+      uint32_t ah[S::kMTiles][4], al[S::kMTiles][4];
+#pragma unroll
+      for (int m = 0; m < S::kMTiles; ++m) {
+        const float* p = xa + (16 * m + g) * S::kLda + kk + t;
+        const float a[4] = {p[0], p[8 * S::kLda], p[4], p[8 * S::kLda + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[m][e] = tf32_rna(a[e]);
+          al[m][e] = tf32_rna(a[e] - __uint_as_float(ah[m][e]));
+        }
+      }
+      uint32_t bh[S::kNTiles][2], bl[S::kNTiles][2];
+#pragma unroll
+      for (int n = 0; n < S::kNTiles; ++n) {
+        const float* p = xb + (kk + t) * S::kLdb + 8 * n + g;
+        bh[n][0] = __float_as_uint(p[0]);
+        bh[n][1] = __float_as_uint(p[4 * S::kLdb]);
+        bl[n][0] = __float_as_uint(p[S::kDepth * S::kLdb]);
+        bl[n][1] = __float_as_uint(p[(S::kDepth + 4) * S::kLdb]);
+      }
+      // each pass over every (row tile, column tile): consecutive
+      // products are independent
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int m = 0; m < S::kMTiles; ++m)
+#pragma unroll
+          for (int n = 0; n < S::kNTiles; ++n)
+            mma_tf32(acc[m][n], pass == 0 ? al[m] : ah[m],
+                     pass == 1 ? bl[n] : bh[n]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // every warp is done with the ring: reuse it
+
+  // the warps' split-K partial sums: red[warp][row][col]
+  float* red = smem;
+#pragma unroll
+  for (int m = 0; m < S::kMTiles; ++m)
+#pragma unroll
+    for (int n = 0; n < S::kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * m + g + 8 * (e >> 1);
+        const int col = 8 * n + 2 * t + (e & 1);
+        red[(warp * S::kRows + row) * S::kCols + col] = acc[m][n][e];
+      }
+  __syncthreads();
+  return red;
+}
+
+// Element (i, j) of a tc_tile result: the sum of the warps' partial sums.
+template <class S>
+__device__ __forceinline__ float tc_sum(const float* red, int i, int j) {
+  float sum = red[i * S::kCols + j];
+#pragma unroll
+  for (int w = 1; w < S::kWarps; ++w)
+    sum += red[(w * S::kRows + i) * S::kCols + j];
+  return sum;
+}
+
+// The SAT Embedding Unit of one block: batch rows b0 .. b0 + kMTiles *
+// floor(16 / k) - 1 (b0 from blockIdx.y), output columns of column tile
+// blockIdx.x. nbr_of(f) gives the TcRow of neighbour row f = b * k + j
+// (winner j of batch row b < B): na floats of its first source || nb of
+// its second. dt, logits and valid are (B, k); table is the folded LUT
+// (E, D). For each batch row b < B and column c < D it calls
+// store(b, c, sum_j attn_j v_j). k must be in [1, 16].
+//
+// Nothing of the epilogue waits on a global load, and nothing in it runs
+// once a batch row: each block row's dt, logit and mask are loaded by its
+// thread together with its row pointers; once the first stages are in
+// flight, the softmax weights of each batch row are computed, and each
+// warp buckets its rows and copies their folded-LUT row slices (and b_v)
+// into shared memory with cp.async, landing with the stages. The epilogue
+// is then one pass: sum_j attn_j ((v_j + lut_j) + b_v) per (batch row,
+// column), with v_j summed over the warps' partial sums.
+template <class S, bool kVec, class NbrOf, class Store>
+__device__ __forceinline__ void sat_eu(
+    const NbrOf& nbr_of, int B, int k, int na, int nb,
+    const float* __restrict__ dt, const float* __restrict__ logits,
+    const uint8_t* __restrict__ valid, const float* __restrict__ w_tc,
+    const float* __restrict__ b_v, const float* __restrict__ bounds,
+    const float* __restrict__ table, int D, int E, const Store& store) {
+  __shared__ float sdt[S::kRows], slogit[S::kRows], sattn[S::kRows];
+  __shared__ uint8_t sval[S::kRows];
+  __shared__ __align__(16) float slut[S::kRows * S::kCols];  // LUT slices
+  __shared__ float sbv[S::kCols];
+  constexpr int kPerWarp = S::kRows / S::kWarps;  // rows each warp buckets
+  static_assert(S::kRows % S::kWarps == 0, "whole rows a warp");
+  const int bpt = 16 / k;                        // batch rows an m16 tile
+  const int b0 = blockIdx.y * S::kMTiles * bpt;
+  const int c0 = blockIdx.x * S::kCols;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const auto nbr = [&](int i) {                  // block row -> f, or -1
+    const int q = i % 16, b = b0 + (i / 16) * bpt + q / k;
+    return (q < bpt * k && b < B) ? b * k + q % k : -1;
+  };
+  const auto first_row = [&](int lb) {           // batch row -> block row
+    return (lb / bpt) * 16 + (lb % bpt) * k;
+  };
+  const auto row_of = [&](int i) {
+    const int f = nbr(i);
+    sdt[i] = f < 0 ? 0.f : dt[f];
+    slogit[i] = f < 0 ? 0.f : logits[f];
+    sval[i] = f < 0 ? 0 : valid[f];
+    return f < 0 ? TcRow{nullptr, nullptr} : nbr_of(f);
+  };
+  const auto pre = [&] {
+    // softmax weights, a lane per block row: the k winners of its batch
+    // row are the lanes first .. first + k - 1 of the same warp. Invalid
+    // winners are masked to kNegInf; a batch row with no valid winner gets
+    // all-zero weights.
+    for (int w0 = threadIdx.y * 32; w0 < S::kRows; w0 += S::kWarps * 32) {
+      const int i = w0 + threadIdx.x;
+      const int first = threadIdx.x - (i % 16) % k;
+      const bool v = i < S::kRows && nbr(i) >= 0 && sval[i];
+      const float l = v ? slogit[i] : kNegInf;
+      float mx = kNegInf;
+      for (int j = 0; j < k; ++j)
+        mx = fmaxf(mx, __shfl_sync(0xffffffffu, l, first + j));
+      const float e = v ? expf(l - mx) : 0.f;
+      float z = 0.f;
+      for (int j = 0; j < k; ++j) z += __shfl_sync(0xffffffffu, e, first + j);
+      if (i < S::kRows) sattn[i] = z > 0.f ? e / fmaxf(z, 1e-30f) : 0.f;
+    }
+    float d[kPerWarp];                           // rows warp + r * kWarps
+    int bk[kPerWarp];
+#pragma unroll
+    for (int r = 0; r < kPerWarp; ++r) d[r] = sdt[threadIdx.y + r * S::kWarps];
+    lut_buckets<kPerWarp>(d, bounds, E, bk);
+#pragma unroll
+    for (int r = 0; r < kPerWarp; ++r) {
+      const int i = threadIdx.y + r * S::kWarps;
+      const float* row = table + (size_t)bk[r] * D + c0;
+      const bool ok = nbr(i) >= 0;
+      for (int j = threadIdx.x; j < S::kCols; j += 32) {
+        const int n = ok && c0 + j < D ? 4 : 0;
+        cp_async4(slut + i * S::kCols + j, n ? row + j : table, n);
+      }
+    }
+    for (int j = tid; j < S::kCols; j += S::kThreads) {
+      const int n = c0 + j < D ? 4 : 0;
+      cp_async4(sbv + j, n ? b_v + c0 + j : b_v, n);
+    }
+  };
+  const float* red = tc_tile<S, kVec>(row_of, na, nb, w_tc, blockIdx.x, pre);
+  for (int o = tid; o < S::kMTiles * bpt * S::kCols; o += S::kThreads) {
+    const int lb = o / S::kCols, j = o % S::kCols;
+    const int b = b0 + lb, c = c0 + j;
+    if (b >= B || c >= D) continue;
+    float out = 0.f;
+    for (int i = first_row(lb); i < first_row(lb) + k; ++i)
+      out += sattn[i] * ((tc_sum<S>(red, i, j) + slut[i * S::kCols + j]) +
+                         sbv[j]);
+    store(b, c, out);
+  }
 }
 
 }  // namespace rt

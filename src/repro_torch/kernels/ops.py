@@ -15,8 +15,8 @@ the plain version; given CUDA tensors it checks them and launches the
 kernel on the current stream, or raises. It never falls back.
 
 ``LAUNCHES`` counts launches per entry point: one for each call that
-launches its kernel (``fused_step``'s two back-to-back phases are one
-call, as in the reference), so a run can show that its main path went
+launches its kernels (``fused_step``'s three back-to-back kernels are
+one call, as in the reference), so a run can show that its main path went
 through the kernels.
 """
 from __future__ import annotations
@@ -158,14 +158,50 @@ def _check_gru_tc(w_tc: torch.Tensor, F: int, M: int) -> None:
                                 3 * GRU_COLS))
 
 
+#: the EU tile of rt::sat_eu (EuShape in common.cuh; sat_aggregate and
+#: fused_step phase 1) and the output transform's tile (OutShape): output
+#: columns a block and K per pipeline stage.
+EU_COLS, EU_DEPTH = 56, 64
+OUT_COLS, OUT_DEPTH = 8, 64
+
+
+def pack_rows_tc(parts, depth: int, cols: int) -> torch.Tensor:
+    """The tensor-core layout of W = [parts[0]; parts[1]; ...] (each
+    (rows_p, N)) that rt::tc_tile streams: (NT, S, 2, depth, cols), for
+    column tile j and depth stage s the TF32 high part, then the low part,
+    of that stage's rows. Each part's rows are padded to whole stages, so
+    a stage reads one source; rows and columns of padding are 0."""
+    N = parts[0].shape[1]
+    stages = [-(-p.shape[0] // depth) for p in parts]
+    nt = -(-N // cols)
+    w = torch.zeros((sum(stages) * depth, nt * cols), dtype=F32,
+                    device=parts[0].device)
+    r0 = 0
+    for part, s in zip(parts, stages):
+        w[r0:r0 + part.shape[0], :N] = part.to(F32)
+        r0 += s * depth
+    hi, lo = tf32_split(w.reshape(sum(stages), depth, nt, cols)
+                        .permute(2, 0, 1, 3))
+    return torch.stack([hi, lo], dim=2).contiguous()
+
+
+def _check_rows_tc(name: str, w_tc: torch.Tensor, rows: tuple, N: int,
+                   depth: int, cols: int) -> None:
+    S = sum(-(-r // depth) for r in rows)
+    _check_shape(name, w_tc, (-(-N // cols), S, 2, depth, cols))
+
+
 def pack_sat_params(w_v: torch.Tensor, b_v: torch.Tensor,
                     boundaries: torch.Tensor,
                     folded_table: torch.Tensor) -> dict:
     """w_v (Dkv, D) memory||edge rows only; folded table (E, D) is
-    table @ W_v[time rows]."""
+    table @ W_v[time rows]. The plain version reads ``w_v``; the kernel
+    reads ``w_tc``, its layout for rt::sat_eu (``pack_rows_tc``: the kv
+    rows as one source)."""
     return {"w_v": _f32(w_v), "b_v": _f32(b_v),
             "bounds": sentinel_bounds(boundaries, folded_table.shape[0]),
-            "table": _f32(folded_table)}
+            "table": _f32(folded_table),
+            "w_tc": pack_rows_tc([w_v], EU_DEPTH, EU_COLS)}
 
 
 def pack_fused_params(gru_params: dict, attn_params: dict, folded_gru: dict,
@@ -173,20 +209,30 @@ def pack_fused_params(gru_params: dict, attn_params: dict, folded_gru: dict,
                       f_edge: int) -> dict:
     """Everything the fused step reads: the raw-mail GRU weights and the
     GRU-folded table (E, 3M); W_v's memory||edge rows (M + Fe, D) and the
-    attention-folded table (E, D); the output transform (M + D, f_emb)."""
+    attention-folded table (E, D); the output transform (M + D, f_emb).
+    The plain version reads the raw weights; the kernels read ``w_tc``
+    (``pack_gru_tc``), ``wv_tc`` (W_v with its memory rows and its edge
+    rows each padded to whole stages) and ``wout_tc`` (W_out with its
+    s_upd rows and its aggregate rows each padded), laid out by
+    ``pack_rows_tc``."""
     gru = pack_gru_params(gru_params["w_i"][:f_mail_raw], gru_params["w_h"],
                           gru_params["b_i"], gru_params["b_h"])
     E = folded_gru["table"].shape[0]
+    w_v = _f32(attn_params["w_v"][:f_mem + f_edge])
+    w_out = _f32(attn_params["w_out"])
     return {
         **gru,
         "g_bounds": sentinel_bounds(folded_gru["boundaries"], E),
         "g_table": _f32(folded_gru["table"]),
-        "w_v": _f32(attn_params["w_v"][:f_mem + f_edge]),
+        "w_v": w_v,
         "b_v": _f32(attn_params["b_v"]),
         "s_bounds": sentinel_bounds(folded_attn["boundaries"], E),
         "s_table": _f32(folded_attn["table"]),
-        "w_out": _f32(attn_params["w_out"]),
+        "w_out": w_out,
         "b_out": _f32(attn_params["b_out"]),
+        "wv_tc": pack_rows_tc([w_v[:f_mem], w_v[f_mem:]], EU_DEPTH, EU_COLS),
+        "wout_tc": pack_rows_tc([w_out[:f_mem], w_out[f_mem:]], OUT_DEPTH,
+                                OUT_COLS),
     }
 
 
@@ -315,16 +361,18 @@ def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
     dev = kv.device
     if not 1 <= k <= MAX_K:
         raise ValueError(f"sat_aggregate takes 1..{MAX_K} winners, got {k}")
+    w_tc = packed["w_tc"]
     _check_cuda(dev, kv=(kv, F32), dt=(dt, F32), logits=(logits, F32),
-                valid=(valid, BOOL), w_v=(w_v, F32), b_v=(b_v, F32),
+                valid=(valid, BOOL), w_tc=(w_tc, F32), b_v=(b_v, F32),
                 bounds=(bounds, F32), table=(table, F32))
     for name, t in (("dt", dt), ("logits", logits), ("valid", valid)):
         _check_shape(name, t, (B, k))
     _check_shape("w_v", w_v, (dkv, D))
+    _check_rows_tc("w_tc", w_tc, (dkv,), D, EU_DEPTH, EU_COLS)
     _check_shape("b_v", b_v, (D,))
     _check_shape("bounds", bounds, (E,))
     out = torch.empty((B, D), dtype=F32, device=dev)
-    _launch("rt_sat_aggregate", dev, kv, dt, logits, valid, w_v, b_v,
+    _launch("rt_sat_aggregate", dev, kv, dt, logits, valid, w_tc, b_v,
             bounds, table, out, B, k, dkv, D, E)
     LAUNCHES["sat_aggregate"] += 1
     return out
@@ -400,8 +448,8 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
                 sel_valid=(sel_valid, BOOL), memory=(memory, F32),
                 mail=(mail, F32), edge_feats=(edge_feats, F32),
                 **{n: (p[n], F32) for n in
-                   ("w_tc", "b_i", "b_h", "g_bounds", "g_table", "w_v",
-                    "b_v", "s_bounds", "s_table", "w_out", "b_out")})
+                   ("w_tc", "b_i", "b_h", "g_bounds", "g_table", "wv_tc",
+                    "b_v", "s_bounds", "s_table", "wout_tc", "b_out")})
     _check_shape("vids", vids, (R,))
     for name, t in (("sel_eid", sel_eid), ("hit", hit), ("sel_dt", sel_dt),
                     ("sel_logits", sel_logits), ("sel_valid", sel_valid)):
@@ -417,14 +465,21 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     _check_shape("g_bounds", p["g_bounds"], (E,))
     _check_shape("g_table", p["g_table"], (E, 3 * M))
     _check_shape("w_v", p["w_v"], (M + Fe, D))
+    _check_rows_tc("wv_tc", p["wv_tc"], (M, Fe), D, EU_DEPTH, EU_COLS)
+    _check_shape("b_v", p["b_v"], (D,))
     _check_shape("s_bounds", p["s_bounds"], (E,))
     _check_shape("w_out", p["w_out"], (M + D, Femb))
+    _check_rows_tc("wout_tc", p["wout_tc"], (M, D), Femb, OUT_DEPTH,
+                   OUT_COLS)
+    _check_shape("b_out", p["b_out"], (Femb,))
     h = torch.empty((R, Femb), dtype=F32, device=dev)
     s_upd = torch.empty((R, M), dtype=F32, device=dev)
+    agg = torch.empty((R, D), dtype=F32, device=dev)   # EU -> out scratch
     _launch("rt_fused_step", dev, vids, sel_ids, sel_eid, hit, dt_mail,
             mail_ok, sel_dt, sel_logits, sel_valid, memory, mail, edge_feats,
             p["w_tc"], p["b_i"], p["b_h"], p["g_bounds"],
-            p["g_table"], p["w_v"], p["b_v"], p["s_bounds"], p["s_table"],
-            p["w_out"], p["b_out"], h, s_upd, R, k, M, F, Fe, D, Femb, E)
+            p["g_table"], p["wv_tc"], p["b_v"], p["s_bounds"], p["s_table"],
+            p["wout_tc"], p["b_out"], h, s_upd, agg, R, k, M, F, Fe, D, Femb,
+            E)
     LAUNCHES["fused_step"] += 1
     return h, s_upd

@@ -9,12 +9,14 @@ tier's StreamingEngine up on 10 batches, then traces the next 20 with
 fused) it prints the wall time per step (host clock around each step,
 which ends in a synchronize), the device-busy time per step (union of the
 kernel and copy intervals), the idle share, the device operations per
-step, and the 12 kernels that take the most device time. Needs a CUDA
-device.
+step, the 12 kernels that take the most device time, and the time per
+step of each of the port's kernels (by kernel function, so fused_step's
+three kernels show apart). Needs a CUDA device.
 """
 from __future__ import annotations
 
 import collections
+import re
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -28,6 +30,10 @@ from repro_torch.utils import resolve_device
 WARMUP = 10
 STEPS = 20
 TOP = 12
+#: the port's kernel functions (kernels/csrc), as the profiler names them
+PORT_KERNELS = ("lut_encode_kernel", "gru_cell_kernel",
+                "sat_aggregate_kernel", "fused_muu_kernel", "fused_eu_kernel",
+                "fused_out_kernel")
 
 
 def busy_us(intervals) -> float:
@@ -70,6 +76,14 @@ def profile_tier(tier, cfg, params, g, device):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, us) in ranked[:TOP]:
         print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {name[:90]}")
+    port = collections.defaultdict(float)
+    for name, (_, us) in by_name.items():
+        m = re.search("|".join(PORT_KERNELS), name)
+        if m:
+            port[m.group(0)] += us / STEPS
+    print(f"profile {tier}: port kernels us/step "
+          f"{ {k: round(v, 2) for k, v in sorted(port.items())} }",
+          flush=True)
 
 
 def main():

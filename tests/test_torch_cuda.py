@@ -94,6 +94,42 @@ SHAPES = [  # R, k, f_mem, f_edge, V, n_edges
 # n // 3 vertices (vids repeat)
 GRU_SHAPES = SHAPES + [(n, 4, f_mem, 5, max(2, n // 3), 7)
                        for n in (1, 17, 401) for f_mem in (8, 36, 100)]
+# and, for the EU's tiles of whole batch rows (16 // k of them an m16
+# tile), k = 1, 6 (rows of padding in every tile) and 16 over batch rows
+# off the tile, f_edge = 0 (no edge stages), and odd f_mem / f_edge (rows
+# not 16-byte aligned: the 4-byte copy path)
+EU_SHAPES = [
+    (17, 1, 100, 172, 50, 60),
+    (401, 6, 100, 172, 9227, 2000),
+    (1, 16, 8, 5, 3, 4),
+    (401, 16, 36, 0, 300, 10),
+    (17, 6, 35, 7, 40, 30),
+    (401, 1, 33, 0, 120, 9),
+    (1, 6, 100, 172, 3, 4),
+]
+
+
+def _shifted(x):
+    """A copy of x that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 != 0
+    return y
+
+
+def _fused_pack(c):
+    M, Fe = c["memory"].shape[1], c["edge_feats"].shape[1]
+    F = c["mail"].shape[1]
+    return ops.pack_fused_params(
+        {n: c[n] for n in ("w_i", "w_h", "b_i", "b_h")},
+        {n: c[n] for n in ("w_v", "b_v", "w_out", "b_out")},
+        {"boundaries": c["bounds"], "table": c["g_table"]},
+        {"boundaries": c["bounds"], "table": c["s_table"]}, F, M, Fe)
+
+
+FUSED_ARGS = ("vids", "sel_ids", "sel_eid", "hit", "dt", "mail_ok", "sel_dt",
+              "logits", "valid", "memory", "mail", "edge_feats")
 
 
 @pytest.mark.cuda
@@ -127,15 +163,7 @@ def test_gru_cell_kernel_unaligned_rows_at_an_aligned_width(cuda_device):
     """F and M multiples of 4, but the tensors start 4 bytes past a
     16-byte boundary: the kernel must take the 4-byte copy path."""
     c = _cases(cuda_device, 45, 2, 100, 172, 3, 4)
-
-    def shifted(x):
-        buf = torch.empty(x.numel() + 1, device=x.device)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        assert y.data_ptr() % 16 != 0
-        return y
-
-    mail, s = shifted(c["mail_rows"]), shifted(c["s_rows"])
+    mail, s = _shifted(c["mail_rows"]), _shifted(c["s_rows"])
     p = ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"])
     got = ops.gru_cell(mail, s, p, extra=c["extra"])
     want = ops.gru_cell_plain(c["mail_rows"], c["s_rows"], c["w_i"],
@@ -144,34 +172,56 @@ def test_gru_cell_kernel_unaligned_rows_at_an_aligned_width(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EU_SHAPES)
 def test_sat_aggregate_kernel_matches_plain(cuda_device, shape):
     c = _cases(cuda_device, *shape)
     p = ops.pack_sat_params(c["w_v"], c["b_v"], c["bounds"], c["s_table"])
     args = (c["kv"], c["sel_dt"], c["logits"], c["valid"])
+    before = ops.LAUNCHES["sat_aggregate"]
     got = ops.sat_aggregate(*args, p)
     want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"], p["bounds"],
                                    p["table"])
+    assert ops.LAUNCHES["sat_aggregate"] == before + 1
     torch.testing.assert_close(got, want, **TOL)
     assert not got[0].any()               # the all-invalid row gives zeros
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", GRU_SHAPES)
+@pytest.mark.parametrize("shape", GRU_SHAPES + EU_SHAPES)
 def test_fused_step_kernel_matches_plain(cuda_device, shape):
     c = _cases(cuda_device, *shape)
-    p = {**ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"]),
-         "g_bounds": ops.sentinel_bounds(c["bounds"], E),
-         "g_table": c["g_table"], "w_v": c["w_v"], "b_v": c["b_v"],
-         "s_bounds": ops.sentinel_bounds(c["bounds"], E),
-         "s_table": c["s_table"], "w_out": c["w_out"], "b_out": c["b_out"]}
-    args = tuple(c[n] for n in ("vids", "sel_ids", "sel_eid", "hit", "dt",
-                                "mail_ok", "sel_dt", "logits", "valid",
-                                "memory", "mail", "edge_feats"))
+    p = _fused_pack(c)
+    args = tuple(c[n] for n in FUSED_ARGS)
+    assert (c["hit"] >= 0).any()          # winners read through s_upd
     before = ops.LAUNCHES["fused_step"]
     got_h, got_s = ops.fused_step(*args, p)
     want_h, want_s = ops.fused_step_plain(*args, p)
     assert ops.LAUNCHES["fused_step"] == before + 1
+    torch.testing.assert_close(got_s, want_s, **TOL)
+    torch.testing.assert_close(got_h, want_h, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sat_aggregate", "fused_step"])
+def test_eu_kernel_unaligned_rows_at_an_aligned_width(cuda_device, kernel):
+    """f_mem and f_edge multiples of 4, but the row tables start 4 bytes
+    past a 16-byte boundary: the EU must take the 4-byte copy path."""
+    c = _cases(cuda_device, 45, 4, 100, 172, 30, 40)
+    if kernel == "sat_aggregate":
+        p = ops.pack_sat_params(c["w_v"], c["b_v"], c["bounds"],
+                                c["s_table"])
+        args = (c["kv"], c["sel_dt"], c["logits"], c["valid"])
+        got = ops.sat_aggregate(_shifted(c["kv"]), *args[1:], p)
+        want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"],
+                                       p["bounds"], p["table"])
+        torch.testing.assert_close(got, want, **TOL)
+        return
+    p = _fused_pack(c)
+    args = [c[n] for n in FUSED_ARGS]
+    want_h, want_s = ops.fused_step_plain(*args, p)
+    for n in ("memory", "edge_feats"):
+        args[FUSED_ARGS.index(n)] = _shifted(c[n])
+    got_h, got_s = ops.fused_step(*args, p)
     torch.testing.assert_close(got_s, want_s, **TOL)
     torch.testing.assert_close(got_h, want_h, **TOL)
 
