@@ -16,8 +16,11 @@ without them, and on any failed check. In order it:
     the plain version and, where one exists, the single PyTorch call that
     computes the same function: device time from CUDA-graph replays, and
     the kernel's time per call issued eagerly from Python; for fused_step
-    it also prints each phase's bound; gru_cell is also checked at n = 1
-    and n = 401 rows, off its 16-row tile;
+    it also prints each phase's bound; for lut_encode it prints the launch
+    floor (an empty kernel of the same grid and arguments, timed the same
+    way); gru_cell is also checked at n = 1 and n = 401 rows, off its
+    16-row tile, and lut_encode at n = 1 and n = 400 with D = 300 and
+    D = 301 (4-byte copies);
  4. checks, on a small graph, the staged and fused tiers on the card
     against the reference tier on the CPU;
  5. builds a Wikipedia-sized graph (8,227 users, 1,000 items, 157,474
@@ -28,8 +31,20 @@ without them, and on any failed check. In order it:
     are held against the ref tier; every kernel must have launched on its
     tier's run (the launch counts are zeroed just before each run and read
     just after);
- 6. prints each tier's latency/throughput summary;
- 7. prints one ``{"kernels": [...]}`` line and, last,
+ 6. on the final ref state of that run, ``pipeline.embed`` of a batch's
+    sources and random negative destinations on the staged and fused
+    tiers against the ref tier, each launching sat_aggregate once, and
+    ``link_score`` of the result;
+ 7. builds the GDELT-like graph (1,000 vertices, 200 static node features,
+    no edge features), holds lut_encode, gru_cell (mail 400 x 200) and
+    sat_aggregate (kv 400 x 4 x 100, no edge stages) against their plain
+    versions at that path's shapes, and runs 30 batches of B = 200 on the
+    ref and staged tiers and with the fused tier requested, which must
+    resolve to staged (``describe()``) and launch lut_encode, gru_cell and
+    sat_aggregate once a step and fused_step never; both kernel runs are
+    held against ref;
+ 8. prints each run's latency/throughput summary;
+ 9. prints one ``{"kernels": [...]}`` line and, last,
     ``{"ok": true, "device": {...}}``.
 
 The weights are random, drawn from a seeded ``torch.Generator``.
@@ -48,6 +63,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_BATCHES = 50
+N_GDELT = 30
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -235,7 +251,32 @@ def kernel_cases(ops, mp, dev):
             phases[0][0] + phases[1][0] - R * M * 4,   # s_upd counted once
             phases[0][1] + phases[1][1]),
     }
-    return cases, phases
+    lut_out = torch.empty((R, 3 * M), device=dev)
+    return cases, phases, lambda: ops.lut_encode_floor(dt, lut_p, lut_out)
+
+
+def check_lut_rows(ops, mp, dev) -> None:
+    """lut_encode against its plain version (exactly: it copies rows) at
+    n = 1 and the main path's 400 rows, at the main path's D = 300 and at
+    D = 301, whose rows are not 16-byte aligned (4-byte copies)."""
+    rng = np.random.RandomState(2)
+    E = mp.E
+    bounds = torch.as_tensor(np.sort(10 ** rng.uniform(0, 7, E - 1)).astype(
+        np.float32), device=dev)
+    for D in (300, 301):
+        packed = ops.pack_lut_params(bounds, torch.as_tensor(
+            rng.randn(E, D).astype(np.float32), device=dev))
+        for n in (1, 2 * mp.B):
+            dt = torch.as_tensor((10 ** rng.uniform(-1, 7.5, n)).astype(
+                np.float32), device=dev)
+            got = ops.lut_encode(dt, packed)
+            want = ops.lut_encode_plain(dt, packed["bounds"], packed["table"])
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want),
+                  f"lut_encode n={n} D={D}: kernel equals plain "
+                  f"(max abs err {err:.3g})")
+            print(f"kernel lut_encode at n = {n}, D = {D}: max_abs_err "
+                  f"{err:.3g} (tol: equal)", flush=True)
 
 
 def check_gru_rows(ops, mp, dev) -> None:
@@ -263,6 +304,61 @@ def check_gru_rows(ops, mp, dev) -> None:
               f"(max abs err {err:.3g})")
         print(f"kernel gru_cell at n = {n}: max_abs_err {err:.3g} "
               f"(tol {KERNEL_TOL})", flush=True)
+
+
+def check_gdelt_rows(ops, cfg, B, dev) -> None:
+    """The staged kernels against their plain versions at the shapes the
+    GDELT-like path ``cfg`` gives them: no edge features, so gru_cell's
+    mail is (2B, 2 f_mem) and sat_aggregate's kv is (2B, k, f_mem), an EU
+    with no edge stages."""
+    rng = np.random.RandomState(3)
+    R, M, K, E = 2 * B, cfg.f_mem, cfg.prune_k, cfg.lut_entries
+    F, Dkv = 2 * M + cfg.f_edge, M + cfg.f_edge
+
+    def f32(*shape, scale=1.0):
+        return torch.as_tensor((rng.randn(*shape) * scale).astype(
+            np.float32), device=dev)
+
+    def dts(*shape):
+        return torch.as_tensor((10 ** rng.uniform(0, 7, shape)).astype(
+            np.float32), device=dev)
+
+    bounds = torch.sort(dts(E - 1)).values
+    w_i, w_h = f32(F, 3 * M, scale=F ** -0.5), f32(M, 3 * M, scale=M ** -0.5)
+    b_i, b_h = f32(3 * M), f32(3 * M)
+    w_v, b_v = f32(Dkv, M, scale=Dkv ** -0.5), f32(M)
+    gru_p = ops.pack_gru_params(w_i, w_h, b_i, b_h)
+    sat_p = ops.pack_sat_params(w_v, b_v, bounds, f32(E, M))
+    lut_p = ops.pack_lut_params(bounds, f32(E, 3 * M))
+    mail, s, extra = f32(R, F), f32(R, M), f32(R, 3 * M)
+    kv, sel_dt, logits = f32(R, K, Dkv), dts(R, K), f32(R, K)
+    valid = torch.as_tensor(rng.rand(R, K) > 0.2, device=dev)
+    dt = dts(R)
+    cases = {
+        "lut_encode": (f"dt ({R},), table ({E}, {3 * M})",
+                       lambda: ops.lut_encode(dt, lut_p),
+                       lambda: ops.lut_encode_plain(dt, lut_p["bounds"],
+                                                    lut_p["table"])),
+        "gru_cell": (f"mail ({R}, {F}), s ({R}, {M})",
+                     lambda: ops.gru_cell(mail, s, gru_p, extra=extra),
+                     lambda: ops.gru_cell_plain(mail, s, w_i, w_h, b_i, b_h,
+                                                extra)),
+        "sat_aggregate": (f"kv ({R}, {K}, {Dkv}), E = {E}",
+                          lambda: ops.sat_aggregate(kv, sel_dt, logits,
+                                                    valid, sat_p),
+                          lambda: ops.sat_aggregate_plain(
+                              kv, sel_dt, logits, valid, w_v, b_v,
+                              sat_p["bounds"], sat_p["table"])),
+    }
+    for name, (shapes, kern, plain) in cases.items():
+        got, want = kern(), plain()
+        err = float((got - want).abs().max())
+        check(torch.isfinite(got).all().item(), f"gdelt {name}: finite")
+        check(torch.allclose(got, want, **KERNEL_TOL),
+              f"gdelt {name} at {shapes}: kernel vs plain within "
+              f"{KERNEL_TOL} (max abs err {err:.3g})")
+        print(f"kernel {name} at the gdelt shapes, {shapes}: max_abs_err "
+              f"{err:.3g} (tol {KERNEL_TOL})", flush=True)
 
 
 #: kernels that run tensor-core products (rt::gru_update, rt::tc_tile);
@@ -308,7 +404,7 @@ KERNEL_META = {
 
 def check_kernels(ops, mp, dev) -> dict:
     rows = {}
-    cases, phases = kernel_cases(ops, mp, dev)
+    cases, phases, floor_call = kernel_cases(ops, mp, dev)
     for name, (kern, plain, lib, nb, flops) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -337,6 +433,12 @@ def check_kernels(ops, mp, dev) -> dict:
         b_ms, b_by = bound(nb, flops)
         print(f"kernel fused_step phase {i}: bound {b_ms * 1e3:.3f} us "
               f"({b_by}: {nb} B, {flops} flop)", flush=True)
+    floor = device_ms(floor_call)
+    lut = rows["lut_encode"]
+    print(f"kernel lut_encode: launch floor {floor * 1e3:.2f} us (empty "
+          f"kernel, same grid and arguments); device time above the floor "
+          f"{(lut['ms'] - floor) * 1e3:.2f} us, bound "
+          f"{lut['bound_ms'] * 1e3:.3f} us", flush=True)
     return rows
 
 
@@ -349,7 +451,7 @@ def run_engine(tier, cfg, params, g, device, n_batches, batch):
     from repro_torch.data import stream
     from repro_torch.serving.engine import EngineConfig, StreamingEngine
     eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier), params,
-                          g.edge_feats, device=device)
+                          g.edge_feats, g.node_feats, device=device)
     embs = []
     batches = stream.fixed_count(g, batch, window=slice(0, n_batches * batch))
     for host, (es, ed) in eng.run(batches):
@@ -400,13 +502,98 @@ def small_graph_check(pl, tgd) -> None:
               f"diff {err:.3g} (tol {TIER_TOL})", flush=True)
 
 
+def check_embed(ops, tgn, stream, engines, g, B) -> None:
+    """``pipeline.embed`` of the next batch's sources and its random
+    negative destinations, at the ref engine's final state, on every tier:
+    the staged and fused tiers (both on the staged sampler and aggregator)
+    against ref, each launching sat_aggregate once and nothing else; then
+    ``link_score`` of sources against negatives."""
+    batch = next(stream.fixed_count(
+        g, B, window=slice(N_BATCHES * B, (N_BATCHES + 1) * B)))
+    ref = engines["ref"]
+    dev = ref.device
+    vids = torch.as_tensor(np.concatenate([batch.src, batch.neg_dst]),
+                           device=dev)
+    t_q = torch.as_tensor(np.concatenate([batch.ts, batch.ts]), device=dev)
+    out = {}
+    for tier, eng in engines.items():
+        ops.reset_launch_counts()
+        out[tier] = eng.pipeline.embed(eng.params, eng.aux, ref.state,
+                                       eng.edge_feats, eng.node_feats, vids,
+                                       t_q)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = 0 if tier == "ref" else 1
+        check(counts["sat_aggregate"] == want
+              and sum(counts.values()) == want,
+              f"embed on {tier}: sat_aggregate launched {want} time(s), "
+              f"nothing else ({counts})")
+        check(all(torch.isfinite(x).all().item() for x in out[tier][:2]),
+              f"embed on {tier}: finite")
+    for tier in ("staged", "fused"):
+        worst = 0.0
+        for name, a, b in zip(("h", "logits", "valid", "dt"), out[tier],
+                              out["ref"]):
+            if a.dtype == torch.bool:
+                check(torch.equal(a, b), f"embed {tier}: {name} equal")
+                continue
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, **TIER_TOL),
+                  f"embed {tier} vs ref: {name} within {TIER_TOL}")
+        print(f"embed {tier} vs ref: max abs diff {worst:.3g} over "
+              f"{vids.numel()} queries (tol {TIER_TOL}); sat_aggregate "
+              f"launched once", flush=True)
+    h = out["fused"][0]
+    score = tgn.link_score(ref.params, h[:B], h[B:])
+    check(score.shape == (B,) and torch.isfinite(score).all().item(),
+          "link_score of embed: finite, one a query")
+    print(f"link_score of sources vs negatives: mean {float(score.mean()):.4g}"
+          f" over {B} pairs, finite", flush=True)
+
+
+def run_gdelt(ops, mp, dev) -> None:
+    """The GDELT-like path (static node features, no edge features) on
+    ref, staged and a fused request, which runs the staged tier."""
+    t0 = time.perf_counter()
+    g, cfg, params = mp.build_gdelt(dev)
+    print(f"gdelt graph: {g.cfg.n_nodes} vertices, {g.n_edges} edges, "
+          f"f_edge {g.edge_feats.shape[1]}, f_feat {g.node_feats.shape[1]} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check_gdelt_rows(ops, cfg, mp.B, dev)
+    runs, launches = {}, {}
+    for tier in ("ref", "staged", "fused"):
+        ops.reset_launch_counts()
+        eng, embs = run_engine(tier, cfg, params, g, dev, N_GDELT, mp.B)
+        launches[tier] = ops.launch_counts()
+        runs[tier] = (embs, eng.state)
+        desc = eng.describe()
+        print(f"gdelt {tier}: stages {desc}", flush=True)
+        print(f"gdelt {tier}: summary {eng.summary()}", flush=True)
+        print(f"gdelt {tier}: launches {launches[tier]}", flush=True)
+        check(desc["use_kernels"] == tier, f"gdelt {tier}: requested tier")
+        check(desc["tier"] == ("ref" if tier == "ref" else "staged"),
+              f"gdelt {tier}: resolved tier {desc['tier']}")
+    check(sum(launches["ref"].values()) == 0, "gdelt ref launches nothing")
+    for tier in ("staged", "fused"):
+        for name in ("lut_encode", "gru_cell", "sat_aggregate"):
+            check(launches[tier][name] == N_GDELT,
+                  f"gdelt {tier} run launched {name} once per step")
+        check(launches[tier]["fused_step"] == 0,
+              f"gdelt {tier} run launched no fused_step")
+        err = compare_tiers(f"gdelt {tier} vs ref", runs[tier], runs["ref"],
+                            TIER_TOL)
+        print(f"gdelt {tier} vs ref: max abs diff {err:.3g} over {N_GDELT} "
+              f"steps and the final state (tol {TIER_TOL})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import pipeline as pl
-    from repro_torch.data import temporal_graph as tgd
+    from repro_torch.core import tgn
+    from repro_torch.data import stream, temporal_graph as tgd
     from repro_torch.kernels import build, ops
     from repro_torch.launch import main_path as mp
 
@@ -431,6 +618,7 @@ def main() -> int:
 
     kernels = check_kernels(ops, mp, dev)
     check_gru_rows(ops, mp, dev)
+    check_lut_rows(ops, mp, dev)
     small_graph_check(pl, tgd)
 
     t0 = time.perf_counter()
@@ -439,12 +627,12 @@ def main() -> int:
           f"{g.edge_feats.shape[1]} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
-    runs, launches = {}, {}
+    runs, launches, engines = {}, {}, {}
     for tier in ("ref", "staged", "fused"):
         ops.reset_launch_counts()
         eng, embs = run_engine(tier, cfg, params, g, dev, N_BATCHES, mp.B)
         launches[tier] = ops.launch_counts()
-        runs[tier] = (embs, eng.state)
+        runs[tier], engines[tier] = (embs, eng.state), eng
         print(f"engine {tier}: stages {eng.describe()}", flush=True)
         print(f"engine {tier}: summary {eng.summary()}", flush=True)
         print(f"engine {tier}: launches {launches[tier]}", flush=True)
@@ -460,6 +648,8 @@ def main() -> int:
         print(f"engine {tier} vs ref: max abs diff {err:.3g} over "
               f"{N_BATCHES} steps and the final state (tol {TIER_TOL})",
               flush=True)
+    check_embed(ops, tgn, stream, engines, g, mp.B)
+    run_gdelt(ops, mp, dev)
 
     rows = []
     for name, k in kernels.items():

@@ -6,6 +6,8 @@ Port of ``repro.core.pipeline`` for the co-designed student ladder
     pipe = build_pipeline("sat+lut+np4", n_nodes=..., n_edges=...)
     aux  = pipe.prepare(params)                  # folded/packed tables
     out  = pipe.step(params, aux, state, batch, edge_feats)   # BatchOut
+    h, logits, valid, dt = pipe.embed(params, aux, state, edge_feats,
+                                      None, vids, t_query)
 
 A pipeline runs on ``cuda`` unless it is given ``device="cpu"``.
 """
@@ -87,11 +89,15 @@ class TGNPipeline:
     """Algorithm 1 as a composition of the resolved stages, on one device.
 
       prepare(params) -> aux                       derived tables
-      step(params, aux, state, batch, edge_feats) -> BatchOut
+      step(params, aux, state, batch, edge_feats, node_feats) -> BatchOut
+      embed(params, aux, state, edge_feats, node_feats, vids, t) -> (h, ...)
     """
 
     def __init__(self, cfg: tgn.TGNConfig, use_kernels=False, device=None):
-        #: the tier that runs (checks that the port covers ``cfg``)
+        self.use_kernels = stages.kernel_tier(use_kernels)
+        #: the tier that runs (checks that the port covers ``cfg``;
+        #: ``"fused"`` runs as ``"staged"`` outside the fused step's
+        #: coverage)
         self.tier = stages.resolved_tier(cfg, use_kernels)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -110,12 +116,14 @@ class TGNPipeline:
         return tgn.init_state(self.cfg, self.device)
 
     def step(self, params: dict, aux: dict, state: mailbox.VertexState,
-             batch, edge_feats: torch.Tensor) -> tgn.BatchOut:
+             batch, edge_feats: torch.Tensor,
+             node_feats: torch.Tensor | None = None) -> tgn.BatchOut:
         """Process one chronological batch of edges ``(src, dst, eid, ts,
         valid)`` (each (B,); ``valid`` may be None). Commits are
         chronological, last write wins per vertex; padding rows write
         nothing (their embeddings are computed but are garbage the caller
-        must mask)."""
+        must mask). ``node_feats`` (n_nodes, f_feat) are the static node
+        features, or None."""
         src, dst, eid, ts, valid = batch
         B = src.shape[0]
         vids = torch.cat([src, dst])                 # (2B,) involved instances
@@ -125,7 +133,8 @@ class TGNPipeline:
                                   device=src.device))
         st = self.stages
 
-        # fused tier: the post-prune datapath is ONE fused_step call
+        # fused tier: the post-prune datapath is ONE fused_step call (it
+        # covers no node features: fused_supported)
         if st.fused is not None:
             return st.fused(params, aux, state, batch, vids, t_inst, vvalid,
                             edge_feats)
@@ -141,7 +150,8 @@ class TGNPipeline:
         # 3. GNN embeddings (sampler + aggregator on updated memory)
         nb = st.sampler(params, aux, state, edge_feats, vids, t_inst)
         s_self = state.memory[vids.long()]
-        h, logits = st.aggregator(params, aux, nb, s_self)
+        f_self = node_feats[vids.long()] if node_feats is not None else None
+        h, logits = st.aggregator(params, aux, nb, s_self, f_self)
 
         # 4. cache new messages (Most-Recent aggregator == LWW commit)
         mem_t = state.memory
@@ -159,15 +169,31 @@ class TGNPipeline:
                             attn_logits=logits, nbr_valid=nb.full_valid,
                             nbr_dt=nb.full_dt)
 
+    def embed(self, params: dict, aux: dict, state: mailbox.VertexState,
+              edge_feats: torch.Tensor, node_feats: torch.Tensor | None,
+              vids: torch.Tensor, t_query: torch.Tensor):
+        """Dynamic embeddings of vertex instances ``vids`` at ``t_query``
+        without a state update (negative-destination scoring, ad-hoc
+        queries): the sampler and aggregator of ``step``, on the staged
+        backends on the fused tier. Returns ``(h, logits, full_valid,
+        full_dt)``."""
+        nb = self.stages.sampler(params, aux, state, edge_feats, vids,
+                                 t_query)
+        s_self = state.memory[vids.long()]
+        f_self = node_feats[vids.long()] if node_feats is not None else None
+        h, logits = self.stages.aggregator(params, aux, nb, s_self, f_self)
+        return h, logits, nb.full_valid, nb.full_dt
+
     def step_fn(self, params: dict, state: mailbox.VertexState, batch,
-                edge_feats: torch.Tensor) -> tgn.BatchOut:
+                edge_feats: torch.Tensor,
+                node_feats: torch.Tensor | None = None) -> tgn.BatchOut:
         """``step`` with aux derived from ``params`` on the spot."""
         return self.step(params, self.prepare(params), state, batch,
-                         edge_feats)
+                         edge_feats, node_feats)
 
     def describe(self) -> dict:
-        """Variant + resolved stage backends (introspection/logging)."""
-        return {"variant": self.variant, "use_kernels": self.tier,
+        """Variant, requested and resolved tier, stage backends."""
+        return {"variant": self.variant, "use_kernels": self.use_kernels,
                 "tier": self.tier, "device": str(self.device),
                 **self.stages.names}
 

@@ -52,24 +52,28 @@ def fused_supported(cfg) -> bool:
 
 
 def check_supported(cfg) -> None:
-    """The port's one coverage rule: the configurations the fused step
-    covers, with the "recent" sampler. Every tier runs all of them."""
-    if not fused_supported(cfg):
-        raise ValueError("the port covers the SAT+LUT student without "
-                         f"static node features only; got attention="
-                         f"{cfg.attention!r}, encoder={cfg.encoder!r}, "
-                         f"f_feat={cfg.f_feat}")
+    """The port's one coverage rule: the SAT+LUT student (with or without
+    static node features) and the "recent" sampler. The ref and staged
+    tiers run all of these; the fused tier those ``fused_supported``
+    covers (``resolved_tier``)."""
+    if cfg.attention != "sat" or cfg.encoder != "lut":
+        raise ValueError("the port covers the SAT+LUT student only; got "
+                         f"attention={cfg.attention!r}, "
+                         f"encoder={cfg.encoder!r}")
     if cfg.sampler != "recent":
         raise ValueError("the port covers the 'recent' sampler only; got "
                          f"{cfg.sampler!r}")
 
 
 def resolved_tier(cfg, use_kernels) -> str:
-    """The tier that runs for ``cfg``. The reference degrades ``"fused"``
-    to ``"staged"`` outside ``fused_supported``; the port accepts no such
-    configuration (``check_supported``), so the requested tier runs."""
+    """The tier that runs for ``cfg`` (checked by ``check_supported``):
+    as in the reference, ``"fused"`` on a configuration outside
+    ``fused_supported`` (static node features) runs the staged tier."""
     check_supported(cfg)
-    return kernel_tier(use_kernels)
+    tier = kernel_tier(use_kernels)
+    if tier == "fused" and not fused_supported(cfg):
+        return "staged"
+    return tier
 
 
 class Neighborhood(NamedTuple):
@@ -100,11 +104,11 @@ class Selection(NamedTuple):
 
 class StageBundle(NamedTuple):
     """The resolved stage stack for one variant and tier. The fused tier
-    carries only ``fused``, the committer and the names; the per-unit
-    stages are None there."""
+    carries ``fused`` for the step and the staged sampler and aggregator
+    for ``embed``; its memory updater is None."""
     memory_updater: object      # (params, aux, state, vids) -> (s_upd, lu_upd)
     sampler: object             # (params, aux, state, ef, vids, t) -> Neighborhood
-    aggregator: object          # (params, aux, nb, s_self) -> (h, logits)
+    aggregator: object          # (params, aux, nb, s_self, f_self) -> (h, logits)
     committer: object           # LastWriteWinsCommitter
     names: dict                 # stage name -> backend label
     fused: object = None        # fused tier only: the one-call step body
@@ -119,8 +123,10 @@ def make_prepare(cfg, use_kernels=False):
     """Build ``prepare(params) -> aux``:
       folded_gru / folded_attn   LUT tables folded through the time rows of
                                  W_i / W_v (te.fold_projection)
-      packed_gru / packed_lut_gru / packed_sat
-                                 the staged kernels' packs (staged tier)
+      packed_gru / packed_lut_gru
+                                 the staged MUU kernels' packs (staged tier)
+      packed_sat                 the SAT aggregate kernel's pack (staged
+                                 tier, and fused tier for ``embed``)
       packed_fused               the fused step's pack (fused tier)
     """
     tier = resolved_tier(cfg, use_kernels)
@@ -139,10 +145,11 @@ def make_prepare(cfg, use_kernels=False):
                 gru_p["b_h"])
             aux["packed_lut_gru"] = kops.pack_lut_params(
                 folded_gru["boundaries"], folded_gru["table"])
+        if tier != "ref":
             aux["packed_sat"] = kops.pack_sat_params(
                 attn_p["w_v"][:dkv], attn_p["b_v"],
                 folded_attn["boundaries"], folded_attn["table"])
-        elif tier == "fused":
+        if tier == "fused":
             aux["packed_fused"] = kops.pack_fused_params(
                 gru_p, attn_p, folded_gru, folded_attn, gcfg.f_mail_raw,
                 cfg.f_mem, cfg.f_edge)
@@ -247,29 +254,31 @@ def make_sampler(cfg):
 
 
 def make_aggregator(cfg, staged: bool):
-    """``aggregator(params, aux, nb, s_self) -> (h, full_logits)``."""
+    """``aggregator(params, aux, nb, s_self, f_self) -> (h, full_logits)``;
+    ``f_self`` are the rows' static node features, or None."""
     dkv = cfg.f_mem + cfg.f_edge
 
-    def out_transform(attn_p, s_self, agg):
-        fp = attn_mod.feat_proj(attn_p["feat"], s_self, None)
+    def out_transform(attn_p, s_self, f_self, agg):
+        fp = attn_mod.feat_proj(attn_p["feat"], s_self, f_self)
         return torch.cat([fp, agg], dim=-1) @ attn_p["w_out"] + attn_p["b_out"]
 
     if staged:
-        def aggregator(params, aux, nb, s_self):
+        def aggregator(params, aux, nb, s_self, f_self):
             kv = torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
             agg = kops.sat_aggregate(kv, nb.dt, nb.logits, nb.valid,
                                      aux["packed_sat"])
-            return out_transform(params["attn"], s_self, agg), nb.full_logits
+            return (out_transform(params["attn"], s_self, f_self, agg),
+                    nb.full_logits)
 
         return aggregator, "attn:sat-lut-cuda"
 
-    def aggregator(params, aux, nb, s_self):
+    def aggregator(params, aux, nb, s_self, f_self):
         attn_p = params["attn"]
         attnw = pruning.masked_softmax(nb.logits, nb.valid)
         v = (torch.cat([nb.s_nbr, nb.e_nbr], dim=-1) @ attn_p["w_v"][:dkv]
              + te.lut_encode(aux["folded_attn"], nb.dt) + attn_p["b_v"])
         agg = torch.einsum("bn,bnd->bd", attnw, v)
-        return out_transform(attn_p, s_self, agg), nb.full_logits
+        return out_transform(attn_p, s_self, f_self, agg), nb.full_logits
 
     return aggregator, "attn:sat-lut-ref"
 
@@ -367,20 +376,21 @@ def make_fused_step(cfg):
 
 def build_stages(cfg, use_kernels=False) -> StageBundle:
     """Resolve the stage stack for ``cfg``: the per-unit stages on the ref
-    and staged tiers, the single-pass step body on the fused tier."""
+    and staged tiers; on the fused tier the single-pass step body, and the
+    staged sampler and aggregator that ``embed`` runs (as the reference's
+    fused tier does)."""
     tier = resolved_tier(cfg, use_kernels)
-    _, sampler_name = make_selector(cfg)
-    names = {"sampler": sampler_name, "committer": "lww-chronological"}
+    sampler, sampler_name = make_sampler(cfg)
+    aggregator, agg_name = make_aggregator(cfg, tier != "ref")
+    names = {"sampler": sampler_name, "aggregator": agg_name,
+             "committer": "lww-chronological"}
     if tier == "fused":
         names["fused_step"] = "step:single-pass-cuda"
-        return StageBundle(memory_updater=None, sampler=None,
-                           aggregator=None,
+        return StageBundle(memory_updater=None, sampler=sampler,
+                           aggregator=aggregator,
                            committer=LastWriteWinsCommitter(), names=names,
                            fused=make_fused_step(cfg))
-    staged = tier == "staged"
-    muu, names["memory_updater"] = make_memory_updater(cfg, staged)
-    sampler, _ = make_sampler(cfg)
-    aggregator, names["aggregator"] = make_aggregator(cfg, staged)
+    muu, names["memory_updater"] = make_memory_updater(cfg, tier == "staged")
     return StageBundle(memory_updater=muu, sampler=sampler,
                        aggregator=aggregator,
                        committer=LastWriteWinsCommitter(), names=names)

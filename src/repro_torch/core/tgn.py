@@ -1,7 +1,10 @@
 """TGN configuration, batch output and parameter/state construction.
 
 Port of ``repro.core.tgn`` for the co-designed student (SAT attention, LUT
-encoder). The Algorithm-1 body is ``core.pipeline.TGNPipeline.step``.
+encoder): the config, parameters and state; ``process_batch`` and
+``_embed``, the reference-tier compositions of the pipeline's stages; and
+the link-prediction head. The Algorithm-1 body is
+``core.pipeline.TGNPipeline.step``.
 """
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as tnf
 
 from repro_torch.utils import FrozenConfig
 from repro_torch.core import attention as attn_mod
@@ -90,3 +94,58 @@ def init_params(generator: torch.Generator, cfg: TGNConfig, device,
 
 def init_state(cfg: TGNConfig, device) -> mailbox.VertexState:
     return mailbox.init_state(cfg.tables, device)
+
+
+# ---------------------------------------------------------------------------
+# Embedding step and Algorithm 1 on the reference tier
+# ---------------------------------------------------------------------------
+
+
+def _reference_pipeline(cfg: TGNConfig, device):
+    # local import: pipeline imports this module for TGNConfig/BatchOut
+    from repro_torch.core import pipeline as pl
+    return pl.build_pipeline(cfg, use_kernels=False, device=device)
+
+
+def _embed(params: dict, cfg: TGNConfig, state: mailbox.VertexState,
+           node_feats: torch.Tensor | None, edge_feats: torch.Tensor,
+           vids: torch.Tensor, t_query: torch.Tensor):
+    """Dynamic embeddings for vertex instances ``vids`` at times
+    ``t_query``: the sampler and aggregator of the reference tier.
+    Returns (h, logits, valid, dt)."""
+    pipe = _reference_pipeline(cfg, vids.device)
+    return pipe.embed(params, pipe.prepare(params), state, edge_feats,
+                      node_feats, vids, t_query)
+
+
+def process_batch(params: dict, cfg: TGNConfig, state: mailbox.VertexState,
+                  node_feats: torch.Tensor | None, edge_feats: torch.Tensor,
+                  src: torch.Tensor, dst: torch.Tensor, eid: torch.Tensor,
+                  ts: torch.Tensor,
+                  valid: torch.Tensor | None = None) -> BatchOut:
+    """One batch of chronologically sorted edges (B,) through the
+    reference tier's step. ``valid`` masks padding rows: their state writes
+    are dropped (their embeddings are garbage the caller must mask)."""
+    pipe = _reference_pipeline(cfg, src.device)
+    return pipe.step_fn(params, state, (src, dst, eid, ts, valid),
+                        edge_feats, node_feats)
+
+
+# ---------------------------------------------------------------------------
+# Self-supervised temporal link prediction head (Section II)
+# ---------------------------------------------------------------------------
+
+
+def link_score(params: dict, h_u: torch.Tensor,
+               h_v: torch.Tensor) -> torch.Tensor:
+    x = torch.cat([h_u, h_v], dim=-1)
+    x = torch.relu(x @ params["link"]["w1"] + params["link"]["b1"])
+    return (x @ params["link"]["w2"] + params["link"]["b2"])[..., 0]
+
+
+def link_loss(params: dict, out: BatchOut, neg_dst_emb: torch.Tensor):
+    """BCE on positive (src, dst) against negative (src, random) pairs."""
+    pos = link_score(params, out.emb_src, out.emb_dst)
+    neg = link_score(params, out.emb_src, neg_dst_emb)
+    loss = (tnf.softplus(-pos).mean() + tnf.softplus(neg).mean()) / 2
+    return loss, (pos, neg)

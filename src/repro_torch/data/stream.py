@@ -1,11 +1,12 @@
 """Chronological batching of a temporal edge stream (Section II-A setup).
 
 ``fixed_count`` forms batches of a fixed number of graph signals, as in
-the paper. A numpy copy of that part of ``repro.data.stream``
-(array-equal batches for the same seed). Batches are padded to a fixed
-shape so one step shape serves the whole stream (padding rows are masked
-via eid/valid); each carries sampled negative destinations for the
-self-supervised link task.
+the paper; ``time_window`` batches the edges of consecutive wall-clock
+windows (the real-time inference mode). A numpy copy of those parts of
+``repro.data.stream`` (array-equal batches for the same seed). Batches
+are padded to a fixed shape so one step shape serves the whole stream
+(padding rows are masked via eid/valid); each carries sampled negative
+destinations for the self-supervised link task.
 """
 from __future__ import annotations
 
@@ -56,3 +57,33 @@ def fixed_count(g: TemporalGraph, batch_size: int, *,
             valid=np.arange(batch_size) < n,
             neg_dst=neg,
         )
+
+
+def time_window(g: TemporalGraph, window_s: float, max_batch: int, *,
+                window: slice | None = None, seed: int = 0
+                ) -> Iterator[EdgeBatch]:
+    """Yield batches of all edges inside consecutive ``window_s``-second
+    windows (padded/truncated to ``max_batch`` — the paper's real-time
+    inference mode)."""
+    rng = np.random.RandomState(seed)
+    lo = (window.start or 0) if window else 0
+    hi = window.stop if window and window.stop is not None else g.n_edges
+    i = lo
+    while i < hi:
+        t0 = g.ts[i]
+        j = i
+        while j < hi and g.ts[j] < t0 + window_s and j - i < max_batch:
+            j += 1
+        idx = np.arange(i, j)
+        n = idx.shape[0]
+        neg = rng.randint(g.cfg.n_users, g.cfg.n_nodes,
+                          size=max_batch).astype(np.int32)
+        yield EdgeBatch(
+            src=_pad(g.src[idx], max_batch),
+            dst=_pad(g.dst[idx], max_batch),
+            eid=_pad(idx.astype(np.int32), max_batch),
+            ts=_pad(g.ts[idx], max_batch),
+            valid=np.arange(max_batch) < n,
+            neg_dst=neg,
+        )
+        i = j

@@ -15,8 +15,8 @@ techniques exploit:
     achievable, so teacher-vs-student accuracy comparisons are meaningful.
 
 ``wikipedia_like`` / ``reddit_like`` emit 172-dim edge features and no node
-features (the reference's ``gdelt_like``, with static node features, is not
-ported: the port serves no node features yet).
+features; ``gdelt_like`` emits 200-dim static node features and no edge
+features (Table II's input dimensions).
 """
 from __future__ import annotations
 
@@ -126,4 +126,10 @@ def reddit_like(n_edges: int = 20_000, seed: int = 1) -> TemporalGraph:
                                  f_edge=172, f_feat=0, zipf_a=1.4, seed=seed))
 
 
-DATASETS = {"wikipedia": wikipedia_like, "reddit": reddit_like}
+def gdelt_like(n_edges: int = 20_000, seed: int = 2) -> TemporalGraph:
+    return generate(StreamConfig(n_users=500, n_items=500, n_edges=n_edges,
+                                 f_edge=0, f_feat=200, seed=seed))
+
+
+DATASETS = {"wikipedia": wikipedia_like, "reddit": reddit_like,
+            "gdelt": gdelt_like}

@@ -29,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argtypes of every C entry point (pointers and the stream as void*).
 SIGNATURES = {
     "rt_lut_encode": [_P] * 4 + [_I] * 3 + [_P],
+    "rt_noop": [_P] * 4 + [_I] * 3 + [_P],
     "rt_gru_cell": [_P] * 7 + [_I] * 3 + [_P],
     "rt_sat_aggregate": [_P] * 9 + [_I] * 5 + [_P],
     "rt_fused_step": [_P] * 26 + [_I] * 8 + [_P],

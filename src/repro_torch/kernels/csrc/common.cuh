@@ -1,9 +1,9 @@
 // Device functions shared by every kernel of the port, so that the staged
 // and fused tiers run the same arithmetic and cannot drift apart:
 //
-//   lut_bucket   LUT bucketing (lut_encode, sat_aggregate, fused_step), the
+//   lut_buckets  LUT bucketing (lut_encode, sat_aggregate, fused_step), the
 //                counterpart of repro/kernels/lut_time_encode.py::lut_rows;
-//                lut_buckets buckets several rows at once
+//                it buckets several rows at once
 //   gru_gate     the GRU gate tail
 //   gru_update   the GRU update of a 16-row x 8-column output tile on the
 //                tensor cores (gru_cell, fused_step phase 0); it replaces
@@ -18,10 +18,7 @@
 //                of repro/kernels/sat_aggregate.py::sat_aggregate_pallas
 //                and phase 1 (_eu) of fused_step.py::fused_step_pallas
 //
-// lut_encode runs on blockDim = (kCols, kRows) = (32, 16): a warp is one
-// row (threadIdx.y), its lanes 32 consecutive columns (threadIdx.x). The
-// tensor-core functions run on blockDim = (32, warps) and are described
-// with them.
+// Every kernel runs on blockDim = (32, warps): threadIdx.x is the lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,28 +27,38 @@
 
 namespace rt {
 
-constexpr int kCols = 32;   // lut_encode: columns a pass (= warp lanes)
-constexpr int kRows = 16;   // lut_encode: rows a block (= warps a block)
 constexpr float kNegInf = -1e30f;  // repro_torch.utils.NEG_INF
 
-// bucket(dt) = #(bounds <= dt) over the E bounds (the last is the +inf
-// sentinel), clamped to E-1 so a row index never leaves the table. The
-// whole warp calls it with the same dt; each lane counts E/32 bounds and a
-// butterfly sum gives every lane the total. The row fetch that follows is
-// an indexed load of one table row (the TPU did it as a one-hot matmul).
-// lut_buckets does R rows at once: each bound is loaded once for all of
-// them, and their R sums interleave.
+// lut_encode's block (lut_encode.cu): a warp a row, kLutWarps rows a
+// block; each lane issues kLutPass row copies before its stores.
+constexpr int kLutWarps = 4;
+constexpr int kLutPass = 4;
+
+// bucket(dt) = #(bounds <= dt) over the bounds of a table of E rows,
+// clamped to E-1 so a row index never leaves the table. The bounds are
+// ops.sentinel_bounds's layout: the E-1 boundaries, then +inf up to a
+// multiple of 4 (at least one), 16-byte aligned; the +inf entries count
+// nothing for a finite dt, and a NaN dt counts nothing. The whole warp
+// calls it with the same R values of dt; each lane counts one float4 of
+// bounds a 128 (at E = 128 one load a lane, issued with the loads of dt)
+// and a butterfly sum gives every lane the totals. Each bound is loaded
+// once for all R rows, and their R sums interleave. The row fetch that
+// follows is an indexed copy of one table row (the TPU did it as a
+// one-hot matmul).
 template <int R>
 __device__ __forceinline__ void lut_buckets(const float (&dt)[R],
                                             const float* __restrict__ bounds,
                                             int E, int (&bucket)[R]) {
+  const int nb = (E + 3) & ~3;          // bounds, padded to whole float4s
   int c[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) c[r] = 0;
-  for (int e = threadIdx.x; e < E; e += kCols) {
-    const float b = bounds[e];
+  for (int e = 4 * threadIdx.x; e < nb; e += 4 * 32) {
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bounds + e));
 #pragma unroll
-    for (int r = 0; r < R; ++r) c[r] += (dt[r] >= b) ? 1 : 0;
+    for (int r = 0; r < R; ++r)
+      c[r] += (dt[r] >= b.x) + (dt[r] >= b.y) + (dt[r] >= b.z) +
+              (dt[r] >= b.w);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -59,15 +66,6 @@ __device__ __forceinline__ void lut_buckets(const float (&dt)[R],
     for (int r = 0; r < R; ++r) c[r] += __shfl_xor_sync(0xffffffffu, c[r], o);
 #pragma unroll
   for (int r = 0; r < R; ++r) bucket[r] = min(c[r], E - 1);
-}
-
-__device__ __forceinline__ int lut_bucket(float dt,
-                                          const float* __restrict__ bounds,
-                                          int E) {
-  const float d[1] = {dt};
-  int b[1];
-  lut_buckets<1>(d, bounds, E, b);
-  return b[0];
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

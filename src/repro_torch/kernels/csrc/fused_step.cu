@@ -51,10 +51,20 @@ __global__ void __launch_bounds__(rt::kGruThreads) fused_muu_kernel(
     float* __restrict__ s_upd, int R, int M, int F, int E) {
   __shared__ int sbucket[rt::kGruRows];
   const int r0 = blockIdx.y * rt::kGruRows;
-  for (int i = threadIdx.y; i < rt::kGruRows; i += rt::kGruWarps) {
-    const int r = r0 + i;
-    const int b = rt::lut_bucket(r < R ? dt_mail[r] : 0.f, g_bounds, E);
-    if (threadIdx.x == 0) sbucket[i] = b;
+  {  // each warp buckets its rows warp + j * kGruWarps together
+    constexpr int kPerWarp = rt::kGruRows / rt::kGruWarps;
+    static_assert(rt::kGruRows % rt::kGruWarps == 0, "whole rows a warp");
+    float d[kPerWarp];
+    int b[kPerWarp];
+#pragma unroll
+    for (int j = 0; j < kPerWarp; ++j) {
+      const int r = r0 + threadIdx.y + j * rt::kGruWarps;
+      d[j] = r < R ? dt_mail[r] : 0.f;
+    }
+    rt::lut_buckets<kPerWarp>(d, g_bounds, E, b);
+#pragma unroll
+    for (int j = 0; j < kPerWarp; ++j)
+      if (threadIdx.x == 0) sbucket[threadIdx.y + j * rt::kGruWarps] = b[j];
   }
   __syncthreads();
   const auto row_of = [&](int i) {

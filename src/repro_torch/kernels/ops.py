@@ -81,12 +81,28 @@ F32, I32, BOOL = torch.float32, torch.int32, torch.bool
 # ---------------------------------------------------------------------------
 
 
+def n_bounds(E: int) -> int:
+    """Entries of the bounds of a table of E rows: E rounded up to whole
+    float4s (rt::lut_buckets loads them 16 bytes at a time)."""
+    return -(-E // 4) * 4
+
+
 def sentinel_bounds(boundaries: torch.Tensor, E: int) -> torch.Tensor:
-    """bounds (E-1,) -> (E,) with a +inf sentinel: the one boundary layout
-    every kernel's bucketing reads (rt::lut_bucket)."""
-    pad = torch.full((E - boundaries.shape[0],), float("inf"), dtype=F32,
-                     device=boundaries.device)
+    """bounds (E-1,) -> (n_bounds(E),): +inf sentinels after the E-1
+    boundaries, the one boundary layout every kernel's bucketing reads
+    (rt::lut_buckets). A sentinel counts nothing for a finite dt, and the
+    count is clamped to E-1, so the padding changes no bucket."""
+    pad = torch.full((n_bounds(E) - boundaries.shape[0],), float("inf"),
+                     dtype=F32, device=boundaries.device)
     return torch.cat([boundaries.to(F32), pad]).contiguous()
+
+
+def _check_bounds(name: str, bounds: torch.Tensor, E: int) -> None:
+    """Bounds in ``sentinel_bounds``'s layout for E table rows, 16-byte
+    aligned."""
+    _check_shape(name, bounds, (n_bounds(E),))
+    if bounds.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -258,12 +274,24 @@ def lut_encode(dt: torch.Tensor, packed: dict) -> torch.Tensor:
         return lut_encode_plain(flat, bounds, table).reshape(*shape, D)
     _check_cuda(flat.device, dt=(flat, F32), bounds=(bounds, F32),
                 table=(table, F32))
-    _check_shape("bounds", bounds, (E,))
+    _check_bounds("bounds", bounds, E)
     out = torch.empty((flat.shape[0], D), dtype=F32, device=flat.device)
+    if flat.shape[0] == 0:                  # nothing to launch
+        return out.reshape(*shape, D)
     _launch("rt_lut_encode", flat.device, flat, bounds, table, out,
             flat.shape[0], E, D)
     LAUNCHES["lut_encode"] += 1
     return out.reshape(*shape, D)
+
+
+def lut_encode_floor(dt: torch.Tensor, packed: dict,
+                     out: torch.Tensor) -> None:
+    """Launch an empty kernel with ``lut_encode``'s grid, block and
+    arguments on CUDA tensors (``out`` (n, D)): the launch floor that
+    ``lut_encode``'s device time is read against. Counts no launch."""
+    bounds, table = packed["bounds"], packed["table"]
+    E, D = table.shape
+    _launch("rt_noop", dt.device, dt, bounds, table, out, dt.shape[0], E, D)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +398,7 @@ def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
     _check_shape("w_v", w_v, (dkv, D))
     _check_rows_tc("w_tc", w_tc, (dkv,), D, EU_DEPTH, EU_COLS)
     _check_shape("b_v", b_v, (D,))
-    _check_shape("bounds", bounds, (E,))
+    _check_bounds("bounds", bounds, E)
     out = torch.empty((B, D), dtype=F32, device=dev)
     _launch("rt_sat_aggregate", dev, kv, dt, logits, valid, w_tc, b_v,
             bounds, table, out, B, k, dkv, D, E)
@@ -462,12 +490,12 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     _check_gru_tc(p["w_tc"], F, M)
     _check_shape("b_i", p["b_i"], (3 * M,))
     _check_shape("b_h", p["b_h"], (3 * M,))
-    _check_shape("g_bounds", p["g_bounds"], (E,))
+    _check_bounds("g_bounds", p["g_bounds"], E)
     _check_shape("g_table", p["g_table"], (E, 3 * M))
     _check_shape("w_v", p["w_v"], (M + Fe, D))
     _check_rows_tc("wv_tc", p["wv_tc"], (M, Fe), D, EU_DEPTH, EU_COLS)
     _check_shape("b_v", p["b_v"], (D,))
-    _check_shape("s_bounds", p["s_bounds"], (E,))
+    _check_bounds("s_bounds", p["s_bounds"], E)
     _check_shape("w_out", p["w_out"], (M + D, Femb))
     _check_rows_tc("wout_tc", p["wout_tc"], (M, D), Femb, OUT_DEPTH,
                    OUT_COLS)

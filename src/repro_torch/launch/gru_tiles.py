@@ -1,8 +1,8 @@
-"""Device time of the tensor-core kernels for other tile shapes.
+"""Device time of the port's kernels for other tile shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.gru_tiles
 
-Two sweeps, each at the main path's shapes with seeded inputs, each shape
+Three sweeps, each at the main path's shapes with seeded inputs, each shape
 compiled from a copy of ``kernels/csrc/common.cuh`` with its constants,
 with nvcc into ``build/repro_torch/gru_tiles/``, all at once:
 
@@ -17,7 +17,12 @@ with nvcc into ``build/repro_torch/gru_tiles/``, all at once:
   and ``fused_step.cu`` and run as ``sat_aggregate`` (B = 400, k = 4,
   Dkv = 272, D = 100) and ``fused_step`` (the main path's fused step on
   a Wikipedia-sized graph); an EU shape keeps the committed output
-  transform, and the reverse.
+  transform, and the reverse;
+- lut_encode's block (``LUT_SHAPES``: rows a block, copies a lane issues
+  before its stores), built from ``lut_encode.cu`` and run at R = 400
+  rows, E = 128, D = 300 beside the empty kernel of the same grid
+  (``rt_noop``, the launch floor); its result must equal the plain
+  version.
 
 Each shape's weights are packed at its own stage depth and column tile,
 its result is checked against the plain version (rtol = atol = 1e-5), and
@@ -62,6 +67,10 @@ OUT_SHAPES = [(1, 1, 8, 1, 3), (1, 1, 4, 2, 3), (1, 1, 4, 1, 3),
               (1, 1, 2, 2, 4), (1, 2, 4, 1, 3), (1, 4, 4, 1, 3)]
 TC_CONSTANTS = ("MTiles", "NTiles", "Warps", "KSteps", "Stages")
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+#: (kLutWarps, kLutPass) of lut_encode; the first is the committed shape.
+LUT_SHAPES = [(4, 4), (1, 4), (2, 4), (8, 4), (16, 4), (4, 1), (4, 2)]
+LUT_CONSTANTS = ("kLutWarps", "kLutPass")
 
 
 def depth(shape) -> int:
@@ -313,8 +322,54 @@ def sweep_eu(device):
                   f"{device_us(fused)} us", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# lut_encode
+# ---------------------------------------------------------------------------
+
+
+def sweep_lut(device):
+    libs = compile_variants({s: dict(zip(LUT_CONSTANTS, s))
+                             for s in LUT_SHAPES}, ("lut_encode.cu",))
+    rng = np.random.RandomState(0)
+    E, D = main_path.E, 3 * M
+    packed = ops.pack_lut_params(
+        torch.as_tensor(np.sort(10 ** rng.uniform(0, 7, E - 1)).astype(
+            np.float32), device=device),
+        torch.as_tensor(rng.randn(E, D).astype(np.float32), device=device))
+    dt = torch.as_tensor((10 ** rng.uniform(0, 7, R)).astype(np.float32),
+                         device=device)
+    want = ops.lut_encode_plain(dt, packed["bounds"], packed["table"])
+    out = torch.empty((R, D), device=device)
+    calls = {}
+    for shape, lib in libs.items():
+        def call(name, lib=lib, shape=shape):
+            err = getattr(lib, name)(
+                dt.data_ptr(), packed["bounds"].data_ptr(),
+                packed["table"].data_ptr(), out.data_ptr(), R, E, D,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{shape}: CUDA error {err}")
+
+        out.zero_()
+        call("rt_lut_encode")
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{shape}: lut_encode differs from plain")
+        calls[shape] = (lambda c=call: c("rt_lut_encode"),
+                        lambda c=call: c("rt_noop"))
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    for order in (LUT_SHAPES, LUT_SHAPES[::-1]):
+        for shape in order:
+            kern, floor = calls[shape]
+            print(f"lut shape {shape}: rows a block {shape[0]}, copies "
+                  f"before stores {shape[1]}, blocks {-(-R // shape[0])}: "
+                  f"lut_encode {device_us(kern)} us, launch floor "
+                  f"{device_us(floor)} us", flush=True)
+
+
 def main():
     device = resolve_device()
+    sweep_lut(device)
     sweep_gru(device)
     sweep_eu(device)
 

@@ -1,11 +1,18 @@
-"""The port's main-path configuration, one definition for the scripts that
-run it on the GPU (``chip_smoke.py`` and ``repro_torch.launch.profile``).
+"""The port's main-path configurations, one definition for the scripts that
+run them on the GPU (``chip_smoke.py`` and ``repro_torch.launch.profile``).
 
-A Wikipedia-sized synthetic graph at the dataset's published counts (8,227
-users, 1,000 items, 157,474 edges, 172 edge features), the student
-``sat+lut+np4`` at paper width (f_mem = f_time = f_emb = 100, m_r = 10,
-k = 4, 128 LUT entries), batches of B = 200 edges, random weights from a
-fixed seed.
+``build``: a Wikipedia-sized synthetic graph at the dataset's published
+counts (8,227 users, 1,000 items, 157,474 edges, 172 edge features, no node
+features).
+
+``build_gdelt``: the GDELT-like graph of ``data.temporal_graph.gdelt_like``
+(500 + 500 vertices, 200 static node features, no edge features, seed 2)
+over as many edges as the Wikipedia path. The fused tier does not cover
+node features, so on it the staged tier runs.
+
+Both serve the student ``sat+lut+np4`` at paper width (f_mem = f_time =
+f_emb = 100, m_r = 10, k = 4, 128 LUT entries) in batches of B = 200
+edges, with random weights from a fixed seed.
 """
 from __future__ import annotations
 
@@ -24,13 +31,24 @@ E = 128                      # LUT entries
 SEED = 0
 
 
-def build(device) -> tuple:
-    """``(graph, cfg, params)`` of the main path, params on ``device``."""
-    g = tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0, seed=SEED))
+def _model(g, device) -> tuple:
     cfg = pl.variant_config(f"sat+lut+np{K}", n_nodes=g.cfg.n_nodes,
-                            n_edges=g.n_edges, f_edge=GRAPH["f_edge"],
-                            f_mem=WIDTH, f_time=WIDTH, f_emb=WIDTH, m_r=M_R,
-                            lut_entries=E)
+                            n_edges=g.n_edges, f_edge=g.cfg.f_edge,
+                            f_feat=g.cfg.f_feat, f_mem=WIDTH, f_time=WIDTH,
+                            f_emb=WIDTH, m_r=M_R, lut_entries=E)
     params = tgn.init_params(torch.Generator().manual_seed(SEED), cfg,
                              device)
     return g, cfg, params
+
+
+def build(device) -> tuple:
+    """``(graph, cfg, params)`` of the Wikipedia path, params on
+    ``device``."""
+    return _model(tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0,
+                                                seed=SEED)), device)
+
+
+def build_gdelt(device) -> tuple:
+    """``(graph, cfg, params)`` of the GDELT-like path, params on
+    ``device``; ``graph.node_feats`` is (1000, 200)."""
+    return _model(tgd.gdelt_like(n_edges=GRAPH["n_edges"]), device)

@@ -3,15 +3,18 @@ device's idle share, per kernel tier.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
 
-Builds the main-path configuration (``launch/main_path.py``), warms each
-tier's StreamingEngine up on 10 batches, then traces the next 20 with
-``torch.profiler`` (device activity only). For each tier (ref, staged,
-fused) it prints the wall time per step (host clock around each step,
-which ends in a synchronize), the device-busy time per step (union of the
-kernel and copy intervals), the idle share, the device operations per
-step, the 12 kernels that take the most device time, and the time per
-step of each of the port's kernels (by kernel function, so fused_step's
-three kernels show apart). Needs a CUDA device.
+Builds the main-path configurations (``launch/main_path.py``: the
+Wikipedia path, then the GDELT-like path), warms each tier's
+StreamingEngine up on 10 batches, then traces the next 20 with
+``torch.profiler`` (device activity only). For each path and tier (ref,
+staged, fused on the Wikipedia path; ref and staged on the GDELT-like
+path, whose fused request runs the staged tier) it prints the wall time
+per step (host clock around each step, which ends in a synchronize), the
+device-busy time per step (union of the kernel and copy intervals), the
+idle share, the device operations per step, the 12 kernels that take the
+most device time, and the time per step of each of the port's kernels
+(by kernel function, so fused_step's three kernels show apart). Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -47,9 +50,9 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_tier(tier, cfg, params, g, device):
+def profile_tier(path, tier, cfg, params, g, device):
     eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier), params,
-                          g.edge_feats, device=device)
+                          g.edge_feats, g.node_feats, device=device)
     B = main_path.B
     batches = list(stream.fixed_count(
         g, B, window=slice(0, (WARMUP + STEPS) * B)))
@@ -70,7 +73,7 @@ def profile_tier(tier, cfg, params, g, device):
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy_ms = busy_us((e.time_range.start, e.time_range.end)
                       for e in events) / 1e3 / STEPS
-    print(f"profile {tier}: wall {wall_ms:.3f} ms/step, device busy "
+    print(f"profile {path} {tier}: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{len(events) / STEPS:.1f} device ops/step", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
@@ -81,16 +84,19 @@ def profile_tier(tier, cfg, params, g, device):
         m = re.search("|".join(PORT_KERNELS), name)
         if m:
             port[m.group(0)] += us / STEPS
-    print(f"profile {tier}: port kernels us/step "
+    print(f"profile {path} {tier}: port kernels us/step "
           f"{ {k: round(v, 2) for k, v in sorted(port.items())} }",
           flush=True)
 
 
 def main():
     device = resolve_device()
-    g, cfg, params = main_path.build(device)
-    for tier in KERNEL_TIERS:
-        profile_tier(tier, cfg, params, g, device)
+    for path, build, tiers in (("wikipedia", main_path.build, KERNEL_TIERS),
+                               ("gdelt", main_path.build_gdelt,
+                                ("ref", "staged"))):
+        g, cfg, params = build(device)
+        for tier in tiers:
+            profile_tier(path, tier, cfg, params, g, device)
 
 
 if __name__ == "__main__":

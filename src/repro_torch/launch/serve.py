@@ -8,6 +8,11 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels fused
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels ref \\
         --edges 800 --batch 100 --f-mem 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset gdelt
+
+``--dataset gdelt`` serves static node features (f_feat = 200) and no edge
+features; ``--kernels fused`` then runs the staged tier, as in the
+reference, and the printed stages say so.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ def run_tgn(args) -> dict:
         f_time=args.f_mem, f_emb=args.f_mem, m_r=10)
     params = tgn.init_params(torch.Generator().manual_seed(0), cfg, device)
     engine = StreamingEngine(EngineConfig(model=cfg, use_kernels=args.kernels),
-                             params, g.edge_feats, device=device)
+                             params, g.edge_feats, g.node_feats,
+                             device=device)
     print("engine stages:", engine.describe())
     for _batch, _out in engine.run(stream.fixed_count(g, args.batch)):
         pass
@@ -43,7 +49,7 @@ def run_tgn(args) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="wikipedia",
-                    choices=("wikipedia", "reddit"))
+                    choices=tuple(tgd.DATASETS))
     ap.add_argument("--edges", type=int, default=4000)
     ap.add_argument("--batch", type=int, default=200)
     ap.add_argument("--f-mem", type=int, default=32)

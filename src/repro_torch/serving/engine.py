@@ -28,6 +28,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core import tgn
 from repro_torch.data.stream import EdgeBatch
 from repro_torch.distributed import overlap
+from repro_torch.obs import Histogram
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +51,7 @@ class StreamingEngine:
     """Stateful streaming inference over a chronological edge stream."""
 
     def __init__(self, cfg: EngineConfig, params: dict, edge_feats,
-                 device=None):
+                 node_feats=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.pipeline = pl.TGNPipeline(cfg.model, cfg.use_kernels,
@@ -62,6 +63,18 @@ class StreamingEngine:
                 or self.edge_feats.shape[1] != cfg.model.f_edge):
             raise ValueError(f"edge_feats must be (n, {cfg.model.f_edge}), "
                              f"got {tuple(self.edge_feats.shape)}")
+        # static node features, (n_nodes, f_feat) when the model has them
+        want = (cfg.model.n_nodes, cfg.model.f_feat)
+        self.node_feats = None
+        if node_feats is not None or cfg.model.f_feat > 0:
+            if node_feats is None:
+                raise ValueError(f"node_feats must be {want}, got None")
+            self.node_feats = torch.as_tensor(
+                node_feats, dtype=torch.float32,
+                device=self.device).contiguous()
+            if tuple(self.node_feats.shape) != want:
+                raise ValueError(f"node_feats must be {want}, got "
+                                 f"{tuple(self.node_feats.shape)}")
         # folded LUT tables and kernel packs, prepared once per session
         self.aux = self.pipeline.prepare(self.params)
         self.state = self.pipeline.init_state()
@@ -71,17 +84,24 @@ class StreamingEngine:
 
     @classmethod
     def from_variant(cls, variant: str, params: dict, edge_feats,
-                     use_kernels=True, prefetch: int = 2, device=None,
-                     **dims) -> "StreamingEngine":
+                     node_feats=None, use_kernels=True, prefetch: int = 2,
+                     device=None, **dims) -> "StreamingEngine":
         """Engine over a registry variant (``"sat+lut+np4"``, ...); ``dims``
         are TGNConfig table/feature fields."""
         model = pl.variant_config(variant, **dims)
         return cls(EngineConfig(model=model, use_kernels=use_kernels,
                                 prefetch=prefetch), params, edge_feats,
-                   device=device)
+                   node_feats, device=device)
 
     def describe(self) -> dict:
         return self.pipeline.describe()
+
+    def step_on_device(self, dev: tuple) -> tgn.BatchOut:
+        """One pipeline step over batch tensors already on the device
+        ``(src, dst, eid, ts, valid)``, WITHOUT committing state and
+        without recording metrics (a benchmarking hook)."""
+        return self.pipeline.step(self.params, self.aux, self.state, dev,
+                                  self.edge_feats, self.node_feats)
 
     def _to_device(self, batch: EdgeBatch) -> overlap.DeviceBatch:
         """Check the batch's ids against the tables, then issue its copy."""
@@ -108,7 +128,7 @@ class StreamingEngine:
         h2d = batch.enq_s + (time.perf_counter() - t0)
         t1 = time.perf_counter()
         out = self.pipeline.step(self.params, self.aux, self.state,
-                                 batch.dev, self.edge_feats)
+                                 batch.dev, self.edge_feats, self.node_feats)
         self._sync()
         dt = time.perf_counter() - t1
         self.state = out.state
@@ -125,20 +145,24 @@ class StreamingEngine:
             yield db.host, self.process(db)
 
     def summary(self) -> dict:
-        """The reference's keys, over every batch after the first (the
-        warm-up batch, which also builds the kernels)."""
+        """The reference's keys, computed as the reference computes them,
+        over every batch after the first (the warm-up batch, which also
+        builds the kernels): means and p99 from log-bucketed histograms
+        (``obs.Histogram``), throughput as edges over the summed
+        latency, and 0.0 where there is no sample."""
         if not self.metrics:
             return {}
-        rest = self.metrics[1:]
-        lat = sorted(m["latency_s"] for m in rest)
-        total = sum(lat)
-        edges = sum(m["edges"] for m in rest)
-        p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else 0.0
+        lat = Histogram("engine.latency_s")
+        h2d = Histogram("engine.h2d_s")
+        for m in self.metrics[1:]:
+            lat.record(m["latency_s"])
+            h2d.record(m["h2d_s"])
+        edges = sum(m["edges"] for m in self.metrics[1:])
         return {
-            "batches": len(rest),
-            "mean_latency_ms": (total / len(lat) if lat else 0.0) * 1e3,
-            "p99_latency_ms": p99 * 1e3,
-            "mean_h2d_ms": (sum(m["h2d_s"] for m in rest) / len(rest)
-                            if rest else 0.0) * 1e3,
-            "throughput_eps": float(edges / total) if total > 0 else 0.0,
+            "batches": len(self.metrics) - 1,
+            "mean_latency_ms": (lat.mean() or 0.0) * 1e3,
+            "p99_latency_ms": (lat.quantile(0.99) or 0.0) * 1e3,
+            "mean_h2d_ms": (h2d.mean() or 0.0) * 1e3,
+            "throughput_eps": (float(edges / lat.total)
+                               if lat.total > 0 else 0.0),
         }

@@ -254,3 +254,122 @@ def test_engine_tier_on_card_matches_ref_on_cpu(cuda_device, tier):
             torch.testing.assert_close(a, b, **TRAJ_TOL)
         else:
             assert torch.equal(a, b), f
+
+
+# lut_encode at the main path's shapes and off them: row counts off the
+# 4-row block (0, 1, 401), D = 301 (4-byte copies), D = 48 (one pass of
+# 16-byte copies over half a warp), E = 16 (bounds of 15 boundaries and
+# one sentinel)
+LUT_CASES = [(n, D, e) for n in (0, 1, 400, 401) for D in (300, 301, 48)
+             for e in (16, 128)]
+
+
+def _lut_case(dev, n, D, e, seed):
+    """Sorted boundaries, a table, and dt values that include every
+    boundary exactly, the float just below it, NaN, +-inf, 0, negatives
+    and values below the first boundary."""
+    rng = np.random.RandomState(seed)
+    inner = np.sort(10 ** rng.uniform(0, 7, e - 1)).astype(np.float32)
+    special = np.concatenate([
+        inner, np.nextafter(inner, -np.inf),
+        [np.nan, np.inf, -np.inf, 0.0, -3.0, inner[0] / 2]]).astype(
+            np.float32)
+    dt = (10 ** rng.uniform(-1, 7.5, n)).astype(np.float32)
+    m = min(n, len(special))
+    dt[:m] = special[rng.permutation(len(special))[:m]]
+    table = rng.randn(e, D).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (dt, inner, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,D,e", LUT_CASES)
+def test_lut_encode_kernel_at_odd_shapes_and_special_dt(cuda_device, n, D, e):
+    dt, inner, table = _lut_case(cuda_device, n, D, e, seed=n + D + e)
+    p = ops.pack_lut_params(inner, table)
+    assert p["bounds"].shape == (ops.n_bounds(e),)
+    before = ops.LAUNCHES["lut_encode"]
+    got = ops.lut_encode(dt, p)
+    want = ops.lut_encode_plain(dt, p["bounds"], p["table"])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["lut_encode"] == before + (n > 0)
+    assert got.shape == (n, D)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [300, 48])
+def test_lut_encode_kernel_table_off_a_16_byte_boundary(cuda_device, D):
+    """D a multiple of 4, but the table starts 4 bytes past a 16-byte
+    boundary: the kernel must take its 4-byte copies."""
+    dt, inner, table = _lut_case(cuda_device, 401, D, 128, seed=D)
+    p = ops.pack_lut_params(inner, table)
+    shifted = {"bounds": p["bounds"], "table": _shifted(p["table"])}
+    got = ops.lut_encode(dt, shifted)
+    want = ops.lut_encode_plain(dt, p["bounds"], p["table"])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sat_aggregate", "fused_step"])
+@pytest.mark.parametrize("e", [13, 128])
+def test_eu_buckets_match_lut_encode_plain(cuda_device, kernel, e):
+    """The EU kernels' buckets are lut_encode_plain's, at the special dt
+    values above: W_v and b_v are 0 and one winner a row is valid, so the
+    aggregate of a row is exactly the folded-LUT row of its winner's
+    bucket; fused_step's h is that row through an identity W_out, and its
+    s_upd reads the GRU-folded rows of dt_mail's buckets. Table rows are
+    far apart (1.0), so a wrong bucket cannot hide in the tolerance."""
+    R, k, M = 401, 4, 100
+    c = _cases(cuda_device, R, k, M, 172, 300, 500, seed=e)
+    dt, inner, _ = _lut_case(cuda_device, R * k + R, 1, e, seed=e + 1)
+    sel_dt, dt_mail = dt[:R * k].reshape(R, k).contiguous(), dt[R * k:]
+    rows = torch.arange(e, dtype=torch.float32, device=cuda_device)
+    s_table = rows[:, None] + 1e-3 * torch.randn(e, M, device=cuda_device)
+    valid = torch.zeros((R, k), dtype=torch.bool, device=cuda_device)
+    valid[:, 1] = True
+    c.update(bounds=inner, s_table=s_table, valid=valid, sel_dt=sel_dt,
+             dt=dt_mail, w_v=torch.zeros_like(c["w_v"]),
+             b_v=torch.zeros_like(c["b_v"]),
+             g_table=0.1 * (rows[:, None] - e / 2).expand(e, 3 * M)
+             .contiguous())
+    want_agg = ops.lut_encode_plain(
+        sel_dt[:, 1].contiguous(), ops.sentinel_bounds(inner, e), s_table)
+    if kernel == "sat_aggregate":
+        p = ops.pack_sat_params(c["w_v"], c["b_v"], inner, s_table)
+        got = ops.sat_aggregate(c["kv"], sel_dt, c["logits"], valid, p)
+        torch.testing.assert_close(got, want_agg, rtol=0, atol=0)
+        return
+    c.update(w_out=torch.cat([torch.zeros(M, M, device=cuda_device),
+                              torch.eye(M, device=cuda_device)]),
+             b_out=torch.zeros_like(c["b_out"]))
+    p = _fused_pack(c)
+    args = tuple(c[n] for n in FUSED_ARGS)
+    got_h, got_s = ops.fused_step(*args, p)
+    want_h, want_s = ops.fused_step_plain(*args, p)
+    torch.testing.assert_close(got_h, want_agg, **TOL)
+    torch.testing.assert_close(got_s, want_s, **TOL)
+    torch.testing.assert_close(want_h, want_agg, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sat_aggregate", "gru_cell"])
+def test_kernels_at_gdelt_widths(cuda_device, kernel):
+    """The GDELT-like path's shapes: no edge features, so the EU's kv rows
+    are the memory rows alone (K = 100) and the GRU's mail is 200 wide."""
+    c = _cases(cuda_device, 400, 4, 100, 0, 1000, 2000)
+    assert c["edge_feats"].shape == (2000, 0)
+    if kernel == "gru_cell":
+        assert c["mail_rows"].shape == (400, 200)
+        p = ops.pack_gru_params(c["w_i"], c["w_h"], c["b_i"], c["b_h"])
+        got = ops.gru_cell(c["mail_rows"], c["s_rows"], p, extra=c["extra"])
+        want = ops.gru_cell_plain(c["mail_rows"], c["s_rows"], c["w_i"],
+                                  c["w_h"], c["b_i"], c["b_h"], c["extra"])
+    else:
+        assert c["kv"].shape == (400, 4, 100)
+        p = ops.pack_sat_params(c["w_v"], c["b_v"], c["bounds"],
+                                c["s_table"])
+        args = (c["kv"], c["sel_dt"], c["logits"], c["valid"])
+        got = ops.sat_aggregate(*args, p)
+        want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"],
+                                       p["bounds"], p["table"])
+    torch.testing.assert_close(got, want, **TOL)

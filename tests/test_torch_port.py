@@ -224,11 +224,15 @@ def test_last_write_wins_and_commit_match_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tier,packs,units", [
+@pytest.mark.parametrize("tier,packs,muu", [
     ("ref", set(), True),
     ("staged", {"packed_gru", "packed_lut_gru", "packed_sat"}, True),
-    ("fused", {"packed_fused"}, False)])
-def test_tier_builds_only_what_it_runs(tier, packs, units):
+    ("fused", {"packed_sat", "packed_fused"}, False)])
+def test_tier_builds_only_what_it_runs(tier, packs, muu):
+    """Every tier builds the sampler and aggregator (``embed`` runs them;
+    on the fused tier they are the staged ones, with ``packed_sat``); the
+    memory updater only where ``step`` runs it, the fused body only on the
+    fused tier."""
     cfg = tpl.variant_config("sat+lut+np4", n_nodes=20, n_edges=30,
                              f_edge=4, f_mem=4, f_time=4, f_emb=4)
     pipe = tpl.TGNPipeline(cfg, tier, device="cpu")
@@ -236,13 +240,15 @@ def test_tier_builds_only_what_it_runs(tier, packs, units):
     aux = pipe.prepare(pipe.init_params())
     assert set(aux) == {"folded_gru", "folded_attn"} | packs
     st = pipe.stages
-    assert (st.fused is None) == units
-    for unit in (st.memory_updater, st.sampler, st.aggregator):
-        assert (unit is not None) == units
+    assert (st.fused is None) == muu
+    assert (st.memory_updater is not None) == muu
+    assert st.sampler is not None and st.aggregator is not None
+    staged = tier != "ref"
+    assert st.names["aggregator"] == ("attn:sat-lut-cuda" if staged
+                                      else "attn:sat-lut-ref")
 
 
-@pytest.mark.parametrize("field,value,fused", [("f_feat", 3, False),
-                                               ("encoder", "cosine", False),
+@pytest.mark.parametrize("field,value,fused", [("encoder", "cosine", False),
                                                ("sampler", "uniform", True)])
 def test_configs_outside_the_port_are_refused_on_every_tier(field, value,
                                                             fused):
@@ -253,6 +259,22 @@ def test_configs_outside_the_port_are_refused_on_every_tier(field, value,
     for tier in stages.KERNEL_TIERS:
         with pytest.raises(ValueError, match="the port covers"):
             stages.resolved_tier(cfg, tier)
+
+
+def test_static_node_features_are_served_with_fused_resolving_to_staged():
+    """f_feat > 0 runs on every tier; the fused step does not cover it,
+    so a fused request runs the staged tier, as in the reference."""
+    cfg = tpl.variant_config("sat+lut+np4", n_nodes=20, n_edges=30,
+                             f_edge=4, f_mem=4, f_time=4,
+                             f_emb=4).replace(f_feat=3)
+    assert not stages.fused_supported(cfg)
+    for tier, want in (("ref", "ref"), ("staged", "staged"),
+                       ("fused", "staged"), (True, "staged")):
+        assert stages.resolved_tier(cfg, tier) == want
+        assert jpl.stages.resolved_tier(cfg, tier) == want
+        pipe = tpl.TGNPipeline(cfg, tier, device="cpu")
+        assert pipe.tier == want and pipe.stages.fused is None
+        assert pipe.describe()["tier"] == want
 
 
 # ---------------------------------------------------------------------------
