@@ -43,8 +43,23 @@ without them, and on any failed check. In order it:
     resolve to staged (``describe()``) and launch lut_encode, gru_cell and
     sat_aggregate once a step and fused_step never; both kernel runs are
     held against ref;
- 8. prints each run's latency/throughput summary;
- 9. prints one ``{"kernels": [...]}`` line and, last,
+ 8. holds sat_aggregate and fused_step against their plain versions at
+    k = 2, 6 and 10 winners a row (R = 400, paper width; invalid slots
+    carry large logits, which the kernels must mask) and times each with
+    its bound, as at k = 4 in step 3;
+ 9. the ladder phase: on the Wikipedia-sized graph at paper width, every
+    variant of Table II (the teacher vanilla+cosine with 2 heads,
+    sat+cosine, sat+lut, sat+lut+np6/np4/np2) and the student's uniform
+    and reservoir samplers, 20 batches on each of ref, staged and fused.
+    Every step's embeddings and the final state are held against the
+    same variant's ref run; the sat+lut runs must launch their tier's
+    kernels once a step (staged: lut_encode, gru_cell, sat_aggregate;
+    fused: fused_step), the cosine runs none, with their fused request
+    resolved to staged and every model stage named ``-ref``; each run's
+    latency and throughput is printed beside the analytic kMAC / kMEM of
+    its Table-II row (``core.complexity.table2``);
+10. prints each run's latency/throughput summary;
+11. prints one ``{"kernels": [...]}`` line and, last,
     ``{"ok": true, "device": {...}}``.
 
 The weights are random, drawn from a seeded ``torch.Generator``.
@@ -64,6 +79,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_BATCHES = 50
 N_GDELT = 30
+N_LADDER = 20
+#: winners a row at which the EU kernels are also held and timed: the
+#: ladder's np2, np6 and score-all (k = m_r) rungs
+EU_KS = (2, 6, 10)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -146,14 +165,18 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(ops, mp, dev):
+def kernel_cases(ops, mp, dev, K=None):
     """Inputs at the shapes of the main path ``mp`` (launch/main_path.py),
     one case per kernel: name -> (kernel call, plain call, library call or
     None, bytes, flops), and the (bytes, flops) of each of fused_step's
-    phases."""
+    phases. ``K`` winners a row (the main path's k by default); at another
+    K the invalid slots get logits far above the valid ones, so an EU that
+    did not mask them would fail its check."""
     rng = np.random.RandomState(0)
     R, M, Fe, D = 2 * mp.B, mp.WIDTH, mp.GRAPH["f_edge"], mp.WIDTH
-    K, E, WIDTH = mp.K, mp.E, mp.WIDTH
+    E, WIDTH = mp.E, mp.WIDTH
+    hot_invalid = K is not None and K != mp.K
+    K = mp.K if K is None else K
     F = 2 * M + Fe
     V = mp.GRAPH["n_users"] + mp.GRAPH["n_items"]
     NE = mp.GRAPH["n_edges"]
@@ -180,6 +203,8 @@ def kernel_cases(ops, mp, dev):
     sel_dt = t((10 ** rng.uniform(0, 7, (R, K))).astype(np.float32))
     logits = f32(R, K)
     valid = t(rng.rand(R, K) > 0.2)
+    if hot_invalid:
+        logits = torch.where(valid, logits, torch.full_like(logits, 80.0))
     w_out, b_out = f32(M + D, WIDTH, scale=(M + D) ** -0.5), f32(WIDTH)
     vids = t(rng.randint(0, V, R).astype(np.int32))
     sel_ids = t(rng.randint(0, V, (R, K)).astype(np.int32))
@@ -402,20 +427,26 @@ KERNEL_META = {
 }
 
 
+def hold(name, kern, plain) -> float:
+    """Run a kernel and its plain version on the same inputs; every output
+    finite and within ``KERNEL_TOL``. Returns the largest difference."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    for a, b in pairs:
+        check(torch.isfinite(a).all().item(), f"{name}: finite output")
+        check(torch.allclose(a, b, **KERNEL_TOL),
+              f"{name}: kernel vs plain within {KERNEL_TOL} (max abs err "
+              f"{err:.3g})")
+    return err
+
+
 def check_kernels(ops, mp, dev) -> dict:
     rows = {}
     cases, phases, floor_call = kernel_cases(ops, mp, dev)
     for name, (kern, plain, lib, nb, flops) in cases.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        pairs = list(zip(got, want)) if isinstance(got, tuple) else \
-            [(got, want)]
-        err = max(float((a - b).abs().max()) for a, b in pairs)
-        for a, b in pairs:
-            check(torch.isfinite(a).all().item(), f"{name}: finite output")
-            check(torch.allclose(a, b, **KERNEL_TOL),
-                  f"{name}: kernel vs plain within {KERNEL_TOL} "
-                  f"(max abs err {err:.3g})")
+        err = hold(name, kern, plain)
         ms, plain_ms = device_ms(kern), device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None
         call_ms = eager_ms(kern)
@@ -440,6 +471,24 @@ def check_kernels(ops, mp, dev) -> dict:
           f"{(lut['ms'] - floor) * 1e3:.2f} us, bound "
           f"{lut['bound_ms'] * 1e3:.3f} us", flush=True)
     return rows
+
+
+def check_eu_at_k(ops, mp, dev) -> None:
+    """sat_aggregate and fused_step against their plain versions at the
+    ladder's other k (``EU_KS``), R = 400 at paper width, each timed by
+    CUDA-graph replays beside its bound. At k = 10 an m16 tile holds one
+    batch row, so 6 of its 16 rows idle; at k = 6, 4 of 16."""
+    for k in EU_KS:
+        cases, _, _ = kernel_cases(ops, mp, dev, K=k)
+        for name in ("sat_aggregate", "fused_step"):
+            kern, plain, _, nb, flops = cases[name]
+            err = hold(f"{name} at k = {k}", kern, plain)
+            ms, plain_ms = device_ms(kern), device_ms(plain)
+            b_ms, b_by = bound(nb, flops)
+            print(f"kernel {name} at k = {k}: max_abs_err {err:.3g} (tol "
+                  f"{KERNEL_TOL}); device {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+                  f"({b_by}: {nb} B, {flops} flop)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -586,11 +635,71 @@ def run_gdelt(ops, mp, dev) -> None:
               f"steps and the final state (tol {TIER_TOL})", flush=True)
 
 
+def table2_row(cx, cfg):
+    """The Table-II row of ``cfg``'s model axes (a sampler variant has the
+    row of its k: the model counts no selection work)."""
+    for name, kw in cx.VARIANT_LADDER:
+        if all(getattr(cfg, f) == v for f, v in kw.items()):
+            return next(r for r in cx.table2("Wikipedia") if r[0] == name)
+    raise RuntimeError(f"no Table-II row for {cfg}")
+
+
+def run_ladder(ops, mp, cx, g, dev) -> None:
+    """Every variant of the ladder on ref, staged and fused, each kernel
+    run held against the variant's ref run, with launch counts."""
+    from repro_torch.core import stages
+    kernels_of = {"ref": (), "staged": ("lut_encode", "gru_cell",
+                                        "sat_aggregate"),
+                  "fused": ("fused_step",)}
+    for variant in mp.LADDER:
+        cfg, params = mp.model(g, variant, dev)
+        mac, mem = table2_row(cx, cfg)[1:3]
+        covered = stages.fused_supported(cfg)
+        runs = {}
+        for tier in stages.KERNEL_TIERS:
+            ops.reset_launch_counts()
+            eng, embs = run_engine(tier, cfg, params, g, dev, N_LADDER, mp.B)
+            counts = ops.launch_counts()
+            runs[tier] = (embs, eng.state)
+            desc = eng.describe()
+            resolved = tier if covered or tier == "ref" else "staged"
+            check(desc["tier"] == resolved,
+                  f"ladder {variant} {tier}: resolved tier {desc['tier']}")
+            want = kernels_of[resolved] if covered else ()
+            check(all(counts[n] == (N_LADDER if n in want else 0)
+                      for n in counts),
+                  f"ladder {variant} {tier}: launches {counts}, want "
+                  f"{want} once a step")
+            if not covered:
+                check("fused_step" not in desc and all(
+                    desc[n].endswith("-ref")
+                    for n in ("memory_updater", "aggregator")),
+                    f"ladder {variant} {tier}: stages named -ref ({desc})")
+            err = 0.0 if tier == "ref" else compare_tiers(
+                f"ladder {variant} {tier} vs ref", runs[tier], runs["ref"],
+                TIER_TOL)
+            sm = eng.summary()
+            stage_names = {n: desc[n] for n in ("memory_updater", "sampler",
+                                                 "aggregator", "fused_step")
+                           if n in desc}
+            print(f"ladder {variant} {tier}: resolved {resolved}, stages "
+                  f"{stage_names}, "
+                  f"launches/step "
+                  f"{ {n: c / N_LADDER for n, c in counts.items() if c} }, "
+                  f"max abs diff vs ref {err:.3g} (tol {TIER_TOL}); mean "
+                  f"{sm['mean_latency_ms']:.3f} ms, p99 "
+                  f"{sm['p99_latency_ms']:.3f} ms, "
+                  f"{sm['throughput_eps']:.0f} edges/s; analytic "
+                  f"{mac['total'] / 1e3:.1f} kMAC, {mem['total'] / 1e3:.3f} "
+                  f"kMEM per embedding", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import complexity as cx
     from repro_torch.core import pipeline as pl
     from repro_torch.core import tgn
     from repro_torch.data import stream, temporal_graph as tgd
@@ -617,6 +726,7 @@ def main() -> int:
               f"{kern}: no spills")
 
     kernels = check_kernels(ops, mp, dev)
+    check_eu_at_k(ops, mp, dev)
     check_gru_rows(ops, mp, dev)
     check_lut_rows(ops, mp, dev)
     small_graph_check(pl, tgd)
@@ -650,6 +760,7 @@ def main() -> int:
               flush=True)
     check_embed(ops, tgn, stream, engines, g, mp.B)
     run_gdelt(ops, mp, dev)
+    run_ladder(ops, mp, cx, g, dev)
 
     rows = []
     for name, k in kernels.items():

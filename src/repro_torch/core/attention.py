@@ -1,20 +1,31 @@
-"""Simplified temporal Attention (SAT, Eq. 16) — the student aggregator.
+"""Temporal attention aggregators.
 
-Port of the SAT half of ``repro.core.attention``:
+Port of ``repro.core.attention``.
 
+Teacher — vanilla temporal attention (Eq. 11-15), H heads:
+    f'_i = s_i + W_s f_i + b_s
+    q    = W_q [f'_i || Phi(0)] + b_q
+    K, V = W_{k,v} [s_j || e_ij || Phi(dt_j)] + b_{k,v}
+    h~_i = softmax(q K^T / sqrt(d_h)) V
+
+Student — Simplified temporal Attention (SAT, Eq. 16):
     alpha'(u) = softmax(a + W_t dt^u)            logits from timestamps ONLY
-    h_i = W_out [f'_i || h~_i] + b_out           output transform
-
 followed by top-k pruning (core/pruning.py) and a V-projection of just the
-surviving neighbors (core/stages.py).
+surviving neighbors (core/stages.py). The output transform is shared:
+    h_i = W_out [f'_i || h~_i] + b_out
+
+The teacher's products are plain torch matmuls, as the reference's are
+XLA ops outside any kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.utils import FrozenConfig
+from repro_torch.core import pruning, time_encode as te
 from repro_torch.core.memory import dense_init
 
 
@@ -25,12 +36,17 @@ class AttnConfig(FrozenConfig):
     f_edge: int = 172
     f_time: int = 100
     f_emb: int = 100
+    n_heads: int = 2         # teacher heads (TGN default)
     m_r: int = 10            # neighbor buffer width
     prune_k: int | None = None   # SAT pruning budget; None = keep all m_r
 
     @property
     def d_kv_in(self) -> int:
         return self.f_mem + self.f_edge + self.f_time
+
+    @property
+    def d_q_in(self) -> int:
+        return self.f_mem + self.f_time
 
 
 def init_feat_proj(generator: torch.Generator, cfg: AttnConfig,
@@ -48,6 +64,46 @@ def feat_proj(params: dict, s: torch.Tensor,
     if "w_s" in params and f is not None:
         return s + f @ params["w_s"] + params["b_s"]
     return s
+
+
+def init_vanilla(generator: torch.Generator, cfg: AttnConfig,
+                 device) -> dict:
+    d = cfg.f_emb
+    return {
+        "feat": init_feat_proj(generator, cfg, device),
+        "w_q": dense_init(generator, (cfg.d_q_in, d), device),
+        "b_q": torch.zeros((d,), device=device),
+        "w_k": dense_init(generator, (cfg.d_kv_in, d), device),
+        "b_k": torch.zeros((d,), device=device),
+        "w_v": dense_init(generator, (cfg.d_kv_in, d), device),
+        "b_v": torch.zeros((d,), device=device),
+        "w_out": dense_init(generator, (cfg.f_mem + d, cfg.f_emb), device),
+        "b_out": torch.zeros((cfg.f_emb,), device=device),
+    }
+
+
+def vanilla_attention(params: dict, cfg: AttnConfig, time_params: dict,
+                      s_self: torch.Tensor, f_self: torch.Tensor | None,
+                      s_nbr: torch.Tensor, e_nbr: torch.Tensor,
+                      dt_nbr: torch.Tensor, valid: torch.Tensor):
+    """Teacher aggregator. s_self (B, f_mem); s_nbr (B, m_r, f_mem); e_nbr
+    (B, m_r, f_edge); dt_nbr, valid (B, m_r). Returns (h (B, f_emb),
+    logits (B, m_r): the head-mean pre-softmax scores, for distillation)."""
+    B, m_r = dt_nbr.shape
+    H = cfg.n_heads
+    fp = feat_proj(params["feat"], s_self, f_self)
+    phi0 = te.cosine_encode(time_params, dt_nbr.new_zeros((B,)))
+    q = (torch.cat([fp, phi0], dim=-1) @ params["w_q"]
+         + params["b_q"]).reshape(B, H, -1)
+    kv_in = torch.cat([s_nbr, e_nbr, te.cosine_encode(time_params, dt_nbr)],
+                      dim=-1)
+    k = (kv_in @ params["w_k"] + params["b_k"]).reshape(B, m_r, H, -1)
+    v = (kv_in @ params["w_v"] + params["b_v"]).reshape(B, m_r, H, -1)
+    scores = torch.einsum("bhd,bnhd->bhn", q, k) / math.sqrt(q.shape[-1])
+    attn = pruning.masked_softmax(scores, valid[:, None, :])
+    agg = torch.einsum("bhn,bnhd->bhd", attn, v).reshape(B, -1)
+    h = torch.cat([fp, agg], dim=-1) @ params["w_out"] + params["b_out"]
+    return h, scores.mean(dim=1)
 
 
 def init_sat(generator: torch.Generator, cfg: AttnConfig, device) -> dict:

@@ -1,8 +1,10 @@
 """Message construction (Eq. 4-5) and the GRU memory updater (Eq. 7-10).
 
-Port of the LUT branch of ``repro.core.memory``. Weights are packed as in
-the reference: W_i (f_mail, 3*f_mem), W_h (f_mem, 3*f_mem), gate order
-[r | z | n]. With the LUT encoder the time contribution is folded: the
+Port of ``repro.core.memory``. Weights are packed as in the reference:
+W_i (f_mail, 3*f_mem), W_h (f_mem, 3*f_mem), gate order [r | z | n]. The
+message is ``s_self || s_other || f_e || Phi(dt)``; the mailbox keeps the
+raw part and Phi(dt) is appended when the mail is consumed (cosine
+encoder). With the LUT encoder the time contribution is folded: the
 GRU-folded LUT row ``(table @ W_i[time rows])[bucket(dt)]`` is added to the
 input projection instead of concatenating Phi(dt).
 """
@@ -49,6 +51,25 @@ def init_gru(generator: torch.Generator, cfg: GRUConfig, device) -> dict:
     }
 
 
+def _gates(gi: torch.Tensor, gh: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    f_mem = s.shape[-1]
+    i_r, i_z, i_n = gi[..., :f_mem], gi[..., f_mem:2 * f_mem], gi[..., 2 * f_mem:]
+    h_r, h_z, h_n = gh[..., :f_mem], gh[..., f_mem:2 * f_mem], gh[..., 2 * f_mem:]
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1.0 - z) * n + z * s
+
+
+def gru_cell(params: dict, mail: torch.Tensor,
+             s: torch.Tensor) -> torch.Tensor:
+    """GRU cell on the whole message. mail (B, f_mail), s (B, f_mem) ->
+    (B, f_mem)."""
+    return _gates(mail @ params["w_i"] + params["b_i"],
+                  s @ params["w_h"] + params["b_h"], s)
+
+
 def gru_cell_lut(params: dict, mail_raw: torch.Tensor,
                  time_rows: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """GRU cell with the time contribution pre-projected (LUT-fused path).
@@ -57,15 +78,8 @@ def gru_cell_lut(params: dict, mail_raw: torch.Tensor,
     through W_i[time rows]; ``s`` (B, f_mem) -> (B, f_mem).
     """
     n_raw = mail_raw.shape[-1]
-    gi = mail_raw @ params["w_i"][:n_raw] + params["b_i"] + time_rows
-    gh = s @ params["w_h"] + params["b_h"]
-    f_mem = s.shape[-1]
-    i_r, i_z, i_n = gi[..., :f_mem], gi[..., f_mem:2 * f_mem], gi[..., 2 * f_mem:]
-    h_r, h_z, h_n = gh[..., :f_mem], gh[..., f_mem:2 * f_mem], gh[..., 2 * f_mem:]
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * s
+    return _gates(mail_raw @ params["w_i"][:n_raw] + params["b_i"]
+                  + time_rows, s @ params["w_h"] + params["b_h"], s)
 
 
 def build_mail_raw(s_self: torch.Tensor, s_other: torch.Tensor,
@@ -77,17 +91,25 @@ def build_mail_raw(s_self: torch.Tensor, s_other: torch.Tensor,
 def update_memory(gru_params: dict, time_params: dict, cfg: GRUConfig,
                   mail_raw: torch.Tensor, mail_ts: torch.Tensor,
                   mail_valid: torch.Tensor, s: torch.Tensor,
-                  last_update: torch.Tensor, *,
+                  last_update: torch.Tensor, *, encoder: str = "cosine",
                   lut_folded: dict | None = None):
-    """Consume cached messages: s' = UPDT(mail, s) (Alg. 1 lines 3-5), LUT
-    encoder. dt = mail_ts - last_update; vertices without valid mail keep
-    their memory. Returns (s_new, last_update_new)."""
+    """Consume cached messages: s' = UPDT(mail, s) (Alg. 1 lines 3-5).
+    dt = mail_ts - last_update; vertices without valid mail keep their
+    memory. Returns (s_new, last_update_new)."""
     dt = mail_ts - last_update
-    folded = lut_folded
-    if folded is None:
-        folded = te.fold_projection(time_params,
-                                    gru_params["w_i"][cfg.f_mail_raw:])
-    s_new = gru_cell_lut(gru_params, mail_raw, te.lut_encode(folded, dt), s)
+    if encoder == "cosine":
+        mail = torch.cat([mail_raw, te.cosine_encode(time_params, dt)],
+                         dim=-1)
+        s_new = gru_cell(gru_params, mail, s)
+    elif encoder == "lut":
+        folded = lut_folded
+        if folded is None:
+            folded = te.fold_projection(time_params,
+                                        gru_params["w_i"][cfg.f_mail_raw:])
+        s_new = gru_cell_lut(gru_params, mail_raw,
+                             te.lut_encode(folded, dt), s)
+    else:
+        raise ValueError(f"unknown encoder {encoder!r}")
     s_out = torch.where(mail_valid[:, None], s_new, s)
     lu_out = torch.where(mail_valid, mail_ts, last_update)
     return s_out, lu_out

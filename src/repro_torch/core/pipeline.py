@@ -1,13 +1,21 @@
-"""The TGN pipeline: Algorithm 1 as one composition of the stages.
+"""The TGN pipeline: Algorithm 1 as one composition of the stages, for
+every variant of the paper's ladder (Table II):
 
-Port of ``repro.core.pipeline`` for the co-designed student ladder
-``sat+lut`` and ``sat+lut+np<k>``:
+    vanilla+cosine  ->  sat+cosine  ->  sat+lut  ->  sat+lut+np{6,4,2}
+
+Port of ``repro.core.pipeline``:
 
     pipe = build_pipeline("sat+lut+np4", n_nodes=..., n_edges=...)
     aux  = pipe.prepare(params)                  # folded/packed tables
     out  = pipe.step(params, aux, state, batch, edge_feats)   # BatchOut
     h, logits, valid, dt = pipe.embed(params, aux, state, edge_feats,
                                       None, vids, t_query)
+
+Variant registry: canonical specs are
+``"<attention>+<encoder>[+np<k>][+<sampler>]"`` (samplers:
+``stages.SAMPLERS``, e.g. ``"sat+lut+np4+reservoir"``); Table-II row names
+and a few shorthands are aliases. An invalid spec raises with the full
+token menu (``spec_menu()``).
 
 A pipeline runs on ``cuda`` unless it is given ``device="cpu"``.
 """
@@ -22,34 +30,70 @@ from repro_torch.core import mailbox, memory, stages, tgn
 
 
 class VariantSpec(NamedTuple):
-    """The model axes of the paper's ablation ladder."""
-    attention: str          # "sat"
-    encoder: str            # "lut"
-    prune_k: int | None     # None | 6 | 4 | 2 | ...
-    sampler: str = "recent"
+    """The three model axes of the paper's ladder, plus the sampler
+    (selection policy of prune-then-fetch; ``stages.SAMPLERS``)."""
+    attention: str          # "vanilla" | "sat"
+    encoder: str            # "cosine" | "lut"
+    prune_k: int | None     # None | 6 | 4 | 2
+    sampler: str = "recent"  # "recent" | "uniform" | "reservoir"
 
 
-_REGISTRY = {
-    "sat+lut": VariantSpec("sat", "lut", None),
-    "sat+lut+np6": VariantSpec("sat", "lut", 6),
-    "sat+lut+np4": VariantSpec("sat", "lut", 4),
-    "sat+lut+np2": VariantSpec("sat", "lut", 2),
-}
-_ALIASES = {"+LUT": "sat+lut", "+NP(L)": "sat+lut+np6", "np6": "sat+lut+np6",
-            "+NP(M)": "sat+lut+np4", "np4": "sat+lut+np4",
-            "student": "sat+lut+np4", "+NP(S)": "sat+lut+np2",
-            "np2": "sat+lut+np2"}
+_REGISTRY: dict[str, VariantSpec] = {}
+_ALIASES: dict[str, str] = {}
 
 
 def spec_menu() -> str:
-    return ("the port serves 'sat+lut' and 'sat+lut+np<k>' (k a positive "
-            f"integer); registered: {sorted(_REGISTRY)}; aliases: "
-            f"{sorted(_ALIASES)}")
+    """The full menu of valid variant-spec tokens; every spec-parsing error
+    carries it."""
+    return (
+        "valid spec grammar: '<attention>+<encoder>[+np<k>][+<sampler>]' "
+        "with attention in ('vanilla', 'sat'), encoder in ('cosine', 'lut'), "
+        "np<k> an integer pruning budget (SAT only, e.g. np4), and sampler "
+        f"in {stages.SAMPLERS} (SAT only; default 'recent'); "
+        f"registered variants: {sorted(_REGISTRY)}; "
+        f"aliases: {sorted(_ALIASES)}")
+
+
+def register_variant(name: str, spec: VariantSpec,
+                     aliases: tuple[str, ...] = ()) -> None:
+    """Register a canonical variant name (and optional aliases)."""
+    _REGISTRY[name] = spec
+    for a in aliases:
+        _ALIASES[a] = name
+
+
+register_variant("vanilla+cosine", VariantSpec("vanilla", "cosine", None),
+                 aliases=("teacher", "baseline", "Baseline", "vanilla"))
+register_variant("sat+cosine", VariantSpec("sat", "cosine", None),
+                 aliases=("+SAT", "sat"))
+register_variant("sat+lut", VariantSpec("sat", "lut", None),
+                 aliases=("+LUT",))
+register_variant("sat+lut+np6", VariantSpec("sat", "lut", 6),
+                 aliases=("+NP(L)", "np6"))
+register_variant("sat+lut+np4", VariantSpec("sat", "lut", 4),
+                 aliases=("+NP(M)", "np4", "student"))
+register_variant("sat+lut+np2", VariantSpec("sat", "lut", 2),
+                 aliases=("+NP(S)", "np2"))
+# the np4 student with the prune-then-fetch selection policy swapped
+register_variant("sat+lut+np4+uniform",
+                 VariantSpec("sat", "lut", 4, "uniform"),
+                 aliases=("uniform",))
+register_variant("sat+lut+np4+reservoir",
+                 VariantSpec("sat", "lut", 4, "reservoir"),
+                 aliases=("reservoir",))
+
+#: Canonical registry names in ladder order (Table II rows).
+VARIANTS = ("vanilla+cosine", "sat+cosine", "sat+lut",
+            "sat+lut+np6", "sat+lut+np4", "sat+lut+np2")
+
+#: Sampler variants of the np4 student (registry names).
+SAMPLER_VARIANTS = ("sat+lut+np4", "sat+lut+np4+uniform",
+                    "sat+lut+np4+reservoir")
 
 
 def resolve_variant(spec) -> VariantSpec:
-    """A canonical name, an alias, ``sat+lut+np<k>``, a VariantSpec or a
-    TGNConfig."""
+    """A canonical name, an alias, a ``<attention>+<encoder>[+np<k>]
+    [+<sampler>]`` string, a VariantSpec or a TGNConfig."""
     if isinstance(spec, VariantSpec):
         return spec
     if isinstance(spec, tgn.TGNConfig):
@@ -60,16 +104,61 @@ def resolve_variant(spec) -> VariantSpec:
     name = _ALIASES.get(spec, spec)
     if name in _REGISTRY:
         return _REGISTRY[name]
+    return _parse_spec(spec)
+
+
+def _parse_spec(spec: str) -> VariantSpec:
+    """Grammar fallback: ``<attention>+<encoder>[+np<k>][+<sampler>]``."""
     parts = spec.split("+")
-    if (len(parts) == 3 and parts[:2] == ["sat", "lut"]
-            and parts[2].startswith("np") and parts[2][2:].isdigit()
-            and int(parts[2][2:]) > 0):
-        return VariantSpec("sat", "lut", int(parts[2][2:]))
-    raise ValueError(f"unknown variant {spec!r}; {spec_menu()}")
+    if len(parts) not in (2, 3, 4):
+        raise ValueError(f"unknown variant {spec!r}; {spec_menu()}")
+    attention, encoder = parts[0], parts[1]
+    if attention not in ("vanilla", "sat"):
+        raise ValueError(f"unknown attention {attention!r} in {spec!r}; "
+                         f"{spec_menu()}")
+    if encoder not in ("cosine", "lut"):
+        raise ValueError(f"unknown encoder {encoder!r} in {spec!r}; "
+                         f"{spec_menu()}")
+    if attention == "vanilla" and encoder != "cosine":
+        raise ValueError("vanilla attention requires the cosine encoder "
+                         "(its K/Q/V inputs consume the cosine encoding "
+                         "directly; LUT is a SAT-path optimization); got "
+                         f"{spec!r}; {spec_menu()}")
+    prune_k = None
+    sampler = None
+    for clause in parts[2:]:
+        if clause.startswith("np") and clause[2:].isdigit():
+            if prune_k is not None:
+                raise ValueError(f"duplicate prune clause {clause!r} in "
+                                 f"{spec!r}; {spec_menu()}")
+            prune_k = int(clause[2:])
+            if attention != "sat":
+                raise ValueError("neighbor pruning requires SAT "
+                                 f"(prune-then-fetch); got {spec!r}; "
+                                 f"{spec_menu()}")
+        elif clause in stages.SAMPLERS:
+            if sampler is not None:
+                raise ValueError(f"duplicate sampler clause {clause!r} in "
+                                 f"{spec!r}; {spec_menu()}")
+            sampler = clause
+            if attention != "sat" and clause != "recent":
+                raise ValueError(
+                    "alternative sampler backends require SAT "
+                    f"(prune-then-fetch); got {spec!r}; {spec_menu()}")
+        else:
+            raise ValueError(f"bad clause {clause!r} in {spec!r}; "
+                             f"{spec_menu()}")
+    return VariantSpec(attention, encoder, prune_k,
+                       sampler if sampler is not None else "recent")
 
 
 def variant_name(spec) -> str:
+    """The registry name of a spec or config, or its canonical string by
+    the grammar where none is registered."""
     v = resolve_variant(spec)
+    for name, s in _REGISTRY.items():
+        if s == v:
+            return name
     base = f"{v.attention}+{v.encoder}"
     if v.prune_k is not None:
         base += f"+np{v.prune_k}"
@@ -95,9 +184,8 @@ class TGNPipeline:
 
     def __init__(self, cfg: tgn.TGNConfig, use_kernels=False, device=None):
         self.use_kernels = stages.kernel_tier(use_kernels)
-        #: the tier that runs (checks that the port covers ``cfg``;
-        #: ``"fused"`` runs as ``"staged"`` outside the fused step's
-        #: coverage)
+        #: the tier that runs (``"fused"`` runs as ``"staged"`` outside the
+        #: fused step's coverage)
         self.tier = stages.resolved_tier(cfg, use_kernels)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -202,7 +290,9 @@ def build_pipeline(spec, use_kernels=False, device=None,
                    **dims) -> TGNPipeline:
     """Build the pipeline for a variant. ``spec`` is a TGNConfig (``dims``
     must then be empty) or a variant string whose ``dims`` fill in the
-    TGNConfig table/feature fields."""
+    TGNConfig table/feature fields. As in the reference, the pipeline is
+    built for the RESOLVED tier: ``"fused"`` on a variant outside the
+    fused step's coverage is the staged pipeline."""
     if isinstance(spec, tgn.TGNConfig):
         if dims:
             raise TypeError("dims are only valid with a variant spec, "
@@ -210,4 +300,5 @@ def build_pipeline(spec, use_kernels=False, device=None,
         cfg = spec
     else:
         cfg = variant_config(spec, **dims)
-    return TGNPipeline(cfg, use_kernels, device=device)
+    return TGNPipeline(cfg, stages.resolved_tier(cfg, use_kernels),
+                       device=device)

@@ -1,15 +1,28 @@
-"""Algorithm 1 of the SAT+LUT student as pluggable stages.
+"""Algorithm 1 as pluggable stages, for every variant of the ladder.
 
-Port of the student half of ``repro.core.stages``:
+Port of ``repro.core.stages``:
 
   MemoryUpdater  (MUU)    consume cached mail -> updated memory rows
-                          (LUT reference | LUT + GRU kernels)
-  Selector/Sampler        prune-then-fetch: top-k from the ring buffer's
-                          timestamps ONLY, then gather just the k winners
-  Aggregator     (EU)     SAT reference | SAT-aggregate kernel
+                          (cosine reference | LUT reference | LUT + GRU
+                          kernels)
+  Sampler                 read the ring buffer. Two dataflows:
+                            fetch-all         the vanilla teacher scores
+                                              from neighbor memory, so it
+                                              gathers all m_r rows
+                            prune-then-fetch  SAT: select k slots from the
+                                              timestamps/ids ONLY, then
+                                              gather just the k winners
+                          Selection policies (``SAMPLERS``): "recent" (SAT
+                          top-k), "uniform" and time-decayed "reservoir"
+                          (a stateless hash, so selection is deterministic)
+  Aggregator     (EU)     vanilla attention | SAT reference | SAT-aggregate
+                          kernel
   Committer               chronological last-write-wins commit (§IV-B)
   fused step              the single-pass tier: selection metadata, then
                           ONE fused_step call (kernels/csrc/fused_step.cu)
+
+Kernels exist for the LUT paths only, as in the reference: a stage without
+one runs its torch reference on every tier, and its name ends in ``-ref``.
 
 Stages are closures built from a frozen ``TGNConfig``; per-call inputs are
 ``(params, aux, ...)`` where ``aux = prepare(params)`` carries the folded
@@ -45,31 +58,16 @@ def kernel_tier(use_kernels) -> str:
 
 
 def fused_supported(cfg) -> bool:
-    """The fused step covers SAT attention + LUT encoder without static
-    node features (the paper's Wikipedia/Reddit setting)."""
+    """The fused step covers SAT attention + LUT encoder (any prune budget
+    and sampler) without static node features (the paper's
+    Wikipedia/Reddit setting)."""
     return (cfg.attention == "sat" and cfg.encoder == "lut"
             and cfg.f_feat == 0)
 
 
-def check_supported(cfg) -> None:
-    """The port's one coverage rule: the SAT+LUT student (with or without
-    static node features) and the "recent" sampler. The ref and staged
-    tiers run all of these; the fused tier those ``fused_supported``
-    covers (``resolved_tier``)."""
-    if cfg.attention != "sat" or cfg.encoder != "lut":
-        raise ValueError("the port covers the SAT+LUT student only; got "
-                         f"attention={cfg.attention!r}, "
-                         f"encoder={cfg.encoder!r}")
-    if cfg.sampler != "recent":
-        raise ValueError("the port covers the 'recent' sampler only; got "
-                         f"{cfg.sampler!r}")
-
-
 def resolved_tier(cfg, use_kernels) -> str:
-    """The tier that runs for ``cfg`` (checked by ``check_supported``):
-    as in the reference, ``"fused"`` on a configuration outside
-    ``fused_supported`` (static node features) runs the staged tier."""
-    check_supported(cfg)
+    """The tier that runs for ``cfg``: as in the reference, ``"fused"`` on
+    a configuration outside ``fused_supported`` runs the staged tier."""
     tier = kernel_tier(use_kernels)
     if tier == "fused" and not fused_supported(cfg):
         return "staged"
@@ -83,7 +81,7 @@ class Neighborhood(NamedTuple):
     e_nbr: torch.Tensor         # (2B, k, f_edge) masked edge features
     dt: torch.Tensor            # (2B, k) time deltas of fetched slots
     valid: torch.Tensor         # (2B, k) fetched-slot validity
-    logits: torch.Tensor        # (2B, k) SAT logits of fetched slots
+    logits: torch.Tensor | None  # (2B, k) SAT logits (None: fetch-all)
     full_logits: torch.Tensor   # (2B, m_r) pre-softmax scores
     full_valid: torch.Tensor    # (2B, m_r) ring-buffer validity
     full_dt: torch.Tensor       # (2B, m_r) time deltas of every slot
@@ -120,7 +118,8 @@ class StageBundle(NamedTuple):
 
 
 def make_prepare(cfg, use_kernels=False):
-    """Build ``prepare(params) -> aux``:
+    """Build ``prepare(params) -> aux``; empty for the cosine encoder.
+    With the LUT encoder:
       folded_gru / folded_attn   LUT tables folded through the time rows of
                                  W_i / W_v (te.fold_projection)
       packed_gru / packed_lut_gru
@@ -132,6 +131,8 @@ def make_prepare(cfg, use_kernels=False):
     tier = resolved_tier(cfg, use_kernels)
 
     def prepare(params: dict) -> dict:
+        if cfg.encoder != "lut":
+            return {}
         gcfg = cfg.gru
         gru_p, attn_p = params["gru"], params["attn"]
         dkv = cfg.f_mem + cfg.f_edge
@@ -165,10 +166,12 @@ def make_prepare(cfg, use_kernels=False):
 
 def make_memory_updater(cfg, staged: bool):
     """UPDT: ``muu(params, aux, state, vids) -> (s_upd, lu_upd)`` from the
-    cached mail of ``vids``; vertices without valid mail keep their rows."""
+    cached mail of ``vids``; vertices without valid mail keep their rows.
+    The kernels serve the LUT encoder; the cosine encoder runs its torch
+    reference on every tier."""
     gcfg = cfg.gru
 
-    if staged:
+    if staged and cfg.encoder == "lut":
         def muu(params, aux, state, vids):
             vids = vids.long()
             mail_valid = state.mail_valid[vids]
@@ -193,46 +196,125 @@ def make_memory_updater(cfg, staged: bool):
             params["gru"], params["time"], gcfg,
             state.mail[vids], state.mail_ts[vids], state.mail_valid[vids],
             state.memory[vids], state.last_update[vids],
-            lut_folded=aux.get("folded_gru"))
+            encoder=cfg.encoder, lut_folded=aux.get("folded_gru"))
 
-    return muu, "gru:lut-ref"
+    return muu, f"gru:{cfg.encoder}-ref"
 
 
 # ---------------------------------------------------------------------------
-# Selector + prune-then-fetch sampler ("recent": SAT top-k)
+# Sampler: fetch-all (vanilla) or prune-then-fetch (SAT) with a policy
 # ---------------------------------------------------------------------------
+
+#: Selection policies of prune-then-fetch:
+#:   recent     the paper's: SAT top-k over the FIFO ring buffer
+#:   uniform    k valid slots uniformly at random (stateless hash)
+#:   reservoir  time-decayed weighted reservoir (Efraimidis-Spirakis keys
+#:              with weight exp(-dt/tau)): recency-biased but randomized
+SAMPLERS = ("recent", "uniform", "reservoir")
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32): the uint32
+    multiply, in two 16-bit halves of ``c`` so no product leaves int64."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _stateless_uniform(eid: torch.Tensor, vids: torch.Tensor,
+                       t_query: torch.Tensor) -> torch.Tensor:
+    """Deterministic pseudo-uniform draws in (0, 1) per (vertex, slot): an
+    integer hash of (edge id, queried vertex, the query time's bits), the
+    reference's uint32 arithmetic done in int64 masked to 32 bits, so the
+    draws equal the reference's bit for bit.
+
+    eid: (B, m_r) int; vids: (B,) int; t_query: (B,) float32.
+    """
+    h = _mul32(eid.long() & _M32, 0x9E3779B1)
+    h = h ^ _mul32(vids.long() & _M32, 0x85EBCA77)[:, None]
+    tb = t_query.to(torch.float32).contiguous().view(torch.int32).long()
+    h = h ^ _mul32(tb & _M32, 0xC2B2AE3D)[:, None]
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x2C1B3C6D)
+    h = h ^ (h >> 12)
+    h = _mul32(h, 0x297A2D39)
+    h = h ^ (h >> 15)
+    # 24 mantissa-safe bits -> (0, 1); +2^-25 keeps log(u) finite
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 2.0 ** -25
 
 
 def make_selector(cfg):
     """``select(params, aux, state, vids, t_query) -> Selection``: the k
-    winners by SAT logit, from the ring buffer's timestamps/ids only."""
+    winners from the ring buffer's timestamps/ids only. "recent" ranks by
+    SAT logit; "uniform" and "reservoir" by a stateless-hash priority."""
     k = min(cfg.prune_k if cfg.prune_k is not None else cfg.m_r, cfg.m_r)
+    policy = cfg.sampler
+    tau = float(cfg.reservoir_tau)
 
     def select(params, aux, state, vids, t_query):
         nbr_ids, nbr_ts, nbr_eid, valid = mailbox.gather_neighbors(
             state, vids)
         dt = (t_query[:, None] - nbr_ts).clamp(min=0.0) * valid
         logits = attn_mod.sat_logits(params["attn"], dt)      # ts ONLY
-        if k < cfg.m_r:
-            idx, sel_logits, sel_valid = pruning.topk_select(logits, valid, k)
-            sel_ids = torch.gather(nbr_ids, 1, idx)
-            sel_eid = torch.gather(nbr_eid, 1, idx)
-            sel_dt = torch.gather(dt, 1, idx)
-        else:
+        if policy == "recent" and k == cfg.m_r:                # score-all
             sel_ids, sel_eid, sel_dt = nbr_ids, nbr_eid, dt
             sel_logits, sel_valid = logits, valid
+        else:
+            prio = logits
+            if policy != "recent":
+                prio = _stateless_uniform(nbr_eid, vids, t_query)
+                if policy == "reservoir":
+                    # key = u^(1/w), w = exp(-dt/tau); rank by log key
+                    prio = torch.log(prio) * torch.exp(
+                        (dt / tau).clamp(max=50.0))
+            idx, _, sel_valid = pruning.topk_select(prio, valid, k)
+            sel_ids, sel_eid, sel_dt, sel_logits = (
+                torch.gather(x, 1, idx) for x in (nbr_ids, nbr_eid, dt,
+                                                  logits))
+            sel_logits = torch.where(sel_valid, sel_logits,
+                                     torch.full_like(sel_dt, pruning.NEG_INF))
         return Selection(ids=sel_ids, eids=sel_eid, dt=sel_dt,
                          logits=sel_logits, valid=sel_valid,
                          full_logits=logits, full_valid=valid, full_dt=dt)
 
-    name = (f"sampler:prune-then-fetch(k={k})" if k < cfg.m_r
-            else "sampler:score-all")
+    if policy == "uniform":
+        name = f"sampler:uniform(k={k})"
+    elif policy == "reservoir":
+        name = f"sampler:reservoir(k={k},tau={tau:g})"
+    else:
+        name = (f"sampler:prune-then-fetch(k={k})" if k < cfg.m_r
+                else "sampler:score-all")
     return select, name
 
 
 def make_sampler(cfg):
     """``sampler(params, aux, state, edge_feats, vids, t_query) ->
-    Neighborhood``: selection metadata, then ONLY the winners' rows."""
+    Neighborhood``. SAT: selection metadata, then ONLY the winners' rows.
+    Vanilla: every ring slot's rows (its scores need neighbor memory)."""
+    if cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler backend {cfg.sampler!r}; "
+                         f"registered backends: {SAMPLERS}")
+    if cfg.attention == "vanilla":
+        if cfg.sampler != "recent":
+            raise ValueError(
+                "alternative sampler backends (uniform/reservoir) require "
+                "SAT attention: vanilla fetch-all consumes every ring-buffer "
+                f"slot, so there is no selection to randomize; got "
+                f"sampler={cfg.sampler!r}")
+
+        def sampler(params, aux, state, edge_feats, vids, t_query):
+            nbr_ids, nbr_ts, nbr_eid, valid = mailbox.gather_neighbors(
+                state, vids)
+            dt = (t_query[:, None] - nbr_ts).clamp(min=0.0) * valid
+            vmask = valid[..., None]
+            return Neighborhood(
+                s_nbr=state.memory[nbr_ids.long()] * vmask,
+                e_nbr=edge_feats[nbr_eid.long()] * vmask, dt=dt, valid=valid,
+                logits=None, full_logits=dt * 0.0, full_valid=valid,
+                full_dt=dt)
+
+        return sampler, "sampler:fetch-all"
+
     select, name = make_selector(cfg)
 
     def sampler(params, aux, state, edge_feats, vids, t_query):
@@ -254,15 +336,25 @@ def make_sampler(cfg):
 
 
 def make_aggregator(cfg, staged: bool):
-    """``aggregator(params, aux, nb, s_self, f_self) -> (h, full_logits)``;
-    ``f_self`` are the rows' static node features, or None."""
+    """``aggregator(params, aux, nb, s_self, f_self) -> (h, logits)``;
+    ``f_self`` are the rows' static node features, or None. The kernel
+    serves SAT with the LUT encoder; vanilla attention and the cosine
+    encoder run their torch references on every tier."""
     dkv = cfg.f_mem + cfg.f_edge
+
+    if cfg.attention == "vanilla":
+        def aggregator(params, aux, nb, s_self, f_self):
+            return attn_mod.vanilla_attention(
+                params["attn"], cfg.attn, params["time"], s_self, f_self,
+                nb.s_nbr, nb.e_nbr, nb.dt, nb.valid)
+
+        return aggregator, "attn:vanilla-ref"
 
     def out_transform(attn_p, s_self, f_self, agg):
         fp = attn_mod.feat_proj(attn_p["feat"], s_self, f_self)
         return torch.cat([fp, agg], dim=-1) @ attn_p["w_out"] + attn_p["b_out"]
 
-    if staged:
+    if staged and cfg.encoder == "lut":
         def aggregator(params, aux, nb, s_self, f_self):
             kv = torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
             agg = kops.sat_aggregate(kv, nb.dt, nb.logits, nb.valid,
@@ -275,12 +367,18 @@ def make_aggregator(cfg, staged: bool):
     def aggregator(params, aux, nb, s_self, f_self):
         attn_p = params["attn"]
         attnw = pruning.masked_softmax(nb.logits, nb.valid)
-        v = (torch.cat([nb.s_nbr, nb.e_nbr], dim=-1) @ attn_p["w_v"][:dkv]
-             + te.lut_encode(aux["folded_attn"], nb.dt) + attn_p["b_v"])
+        if cfg.encoder == "lut":
+            v = (torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
+                 @ attn_p["w_v"][:dkv]
+                 + te.lut_encode(aux["folded_attn"], nb.dt) + attn_p["b_v"])
+        else:
+            phi = te.cosine_encode(params["time"], nb.dt)
+            v = (torch.cat([nb.s_nbr, nb.e_nbr, phi], dim=-1)
+                 @ attn_p["w_v"] + attn_p["b_v"])
         agg = torch.einsum("bn,bnd->bd", attnw, v)
         return out_transform(attn_p, s_self, f_self, agg), nb.full_logits
 
-    return aggregator, "attn:sat-lut-ref"
+    return aggregator, f"attn:sat-{cfg.encoder}-ref"
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +476,12 @@ def build_stages(cfg, use_kernels=False) -> StageBundle:
     """Resolve the stage stack for ``cfg``: the per-unit stages on the ref
     and staged tiers; on the fused tier the single-pass step body, and the
     staged sampler and aggregator that ``embed`` runs (as the reference's
-    fused tier does)."""
+    fused tier does). A variant outside ``fused_supported`` resolves a
+    fused request to its staged stack."""
+    if cfg.attention == "vanilla" and cfg.encoder != "cosine":
+        raise ValueError("vanilla attention requires the cosine encoder "
+                         "(its K/Q/V inputs consume the cosine encoding "
+                         "directly; LUT is a SAT-path optimization)")
     tier = resolved_tier(cfg, use_kernels)
     sampler, sampler_name = make_sampler(cfg)
     aggregator, agg_name = make_aggregator(cfg, tier != "ref")

@@ -1,10 +1,16 @@
 """TGN configuration, batch output and parameter/state construction.
 
-Port of ``repro.core.tgn`` for the co-designed student (SAT attention, LUT
-encoder): the config, parameters and state; ``process_batch`` and
-``_embed``, the reference-tier compositions of the pipeline's stages; and
-the link-prediction head. The Algorithm-1 body is
+Port of ``repro.core.tgn``: the config, parameters and state of every
+variant of the paper's ladder (Table II), teacher included;
+``process_batch`` and ``_embed``, the reference-tier compositions of the
+pipeline's stages; and the link-prediction head. The Algorithm-1 body is
 ``core.pipeline.TGNPipeline.step``.
+
+Variant axes:
+  attention: "vanilla" (teacher/baseline) | "sat" (+SAT)
+  encoder:   "cosine" | "lut"             (+LUT)
+  prune_k:   None | 6 | 4 | 2             (+NP(L/M/S))
+  sampler:   "recent" (SAT top-k) | "uniform" | "reservoir"
 """
 from __future__ import annotations
 
@@ -29,13 +35,13 @@ class TGNConfig(FrozenConfig):
     f_time: int = 100
     f_emb: int = 100
     m_r: int = 10
-    # the only model axes the port serves yet: the SAT+LUT student with the
-    # "recent" sampler (the reference's teacher and samplers come later)
-    attention: str = "sat"
-    encoder: str = "lut"
+    n_heads: int = 2
+    attention: str = "vanilla"   # "vanilla" | "sat"
+    encoder: str = "cosine"      # "cosine" | "lut"
     lut_entries: int = 128
     prune_k: int | None = None
-    sampler: str = "recent"
+    sampler: str = "recent"      # "recent" | "uniform" | "reservoir"
+    reservoir_tau: float = 86_400.0  # time-decay scale (s) of the reservoir
 
     @property
     def gru(self) -> memory.GRUConfig:
@@ -46,8 +52,8 @@ class TGNConfig(FrozenConfig):
     def attn(self) -> attn_mod.AttnConfig:
         return attn_mod.AttnConfig(
             f_mem=self.f_mem, f_feat=self.f_feat, f_edge=self.f_edge,
-            f_time=self.f_time, f_emb=self.f_emb, m_r=self.m_r,
-            prune_k=self.prune_k)
+            f_time=self.f_time, f_emb=self.f_emb, n_heads=self.n_heads,
+            m_r=self.m_r, prune_k=self.prune_k)
 
     @property
     def tables(self) -> mailbox.TableConfig:
@@ -66,22 +72,22 @@ class BatchOut(NamedTuple):
 
 def init_params(generator: torch.Generator, cfg: TGNConfig, device,
                 dt_samples=None) -> dict:
-    """Random parameters for the SAT+LUT student, drawn from ``generator``.
+    """Random parameters for any variant, drawn from ``generator``.
 
     The layout is the reference's (nested dicts); the draws are torch's, so
     parity tests load the reference's parameters through
     ``repro_torch.convert.params_from_reference`` instead.
     """
-    if cfg.attention != "sat" or cfg.encoder != "lut":
-        raise ValueError("the port covers the SAT+LUT student only; got "
-                         f"attention={cfg.attention!r}, "
-                         f"encoder={cfg.encoder!r}")
     tcfg = te.TimeEncoderConfig(dim=cfg.f_time, n_entries=cfg.lut_entries)
     d = cfg.f_emb
+    init_attn = (attn_mod.init_vanilla if cfg.attention == "vanilla"
+                 else attn_mod.init_sat)
     return {
         "gru": memory.init_gru(generator, cfg.gru, device),
-        "time": te.init_lut(generator, tcfg, device, dt_samples=dt_samples),
-        "attn": attn_mod.init_sat(generator, cfg.attn, device),
+        "time": (te.init_cosine(tcfg, device) if cfg.encoder == "cosine"
+                 else te.init_lut(generator, tcfg, device,
+                                  dt_samples=dt_samples)),
+        "attn": init_attn(generator, cfg.attn, device),
         # downstream link predictor (self-supervision; Section II)
         "link": {
             "w1": memory.dense_init(generator, (2 * d, d), device),

@@ -1,17 +1,19 @@
 """The port's main-path configurations, one definition for the scripts that
 run them on the GPU (``chip_smoke.py`` and ``repro_torch.launch.profile``).
 
-``build``: a Wikipedia-sized synthetic graph at the dataset's published
-counts (8,227 users, 1,000 items, 157,474 edges, 172 edge features, no node
-features).
+``build_variant``: a Wikipedia-sized synthetic graph at the dataset's
+published counts (8,227 users, 1,000 items, 157,474 edges, 172 edge
+features, no node features) serving any registry variant of the ladder
+(``core.pipeline.VARIANTS`` and ``SAMPLER_VARIANTS``; the teacher with 2
+heads). ``build`` is ``build_variant("sat+lut+np4", ...)``.
 
 ``build_gdelt``: the GDELT-like graph of ``data.temporal_graph.gdelt_like``
 (500 + 500 vertices, 200 static node features, no edge features, seed 2)
 over as many edges as the Wikipedia path. The fused tier does not cover
 node features, so on it the staged tier runs.
 
-Both serve the student ``sat+lut+np4`` at paper width (f_mem = f_time =
-f_emb = 100, m_r = 10, k = 4, 128 LUT entries) in batches of B = 200
+All run at paper width (f_mem = f_time = f_emb = 100, m_r = 10, 128 LUT
+entries; the student ``sat+lut+np4`` keeps k = 4) in batches of B = 200
 edges, with random weights from a fixed seed.
 """
 from __future__ import annotations
@@ -26,29 +28,45 @@ B = 200                      # edges per batch; R = 2B vertex rows
 GRAPH = dict(n_users=8227, n_items=1000, n_edges=157474, f_edge=172)
 WIDTH = 100                  # f_mem = f_time = f_emb
 M_R = 10                     # ring-buffer slots
-K = 4                        # winners kept by prune-then-fetch
+K = 4                        # winners kept by the student's prune-then-fetch
 E = 128                      # LUT entries
 SEED = 0
+STUDENT = f"sat+lut+np{K}"
+#: the ladder served on the Wikipedia path: Table II's rows, then the
+#: student's sampler variants
+LADDER = pl.VARIANTS + pl.SAMPLER_VARIANTS[1:]
 
 
-def _model(g, device) -> tuple:
-    cfg = pl.variant_config(f"sat+lut+np{K}", n_nodes=g.cfg.n_nodes,
+def wikipedia_graph():
+    return tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0, seed=SEED))
+
+
+def model(g, variant: str, device) -> tuple:
+    """``(cfg, params)`` of ``variant`` over graph ``g`` at paper width,
+    params on ``device``."""
+    cfg = pl.variant_config(variant, n_nodes=g.cfg.n_nodes,
                             n_edges=g.n_edges, f_edge=g.cfg.f_edge,
                             f_feat=g.cfg.f_feat, f_mem=WIDTH, f_time=WIDTH,
                             f_emb=WIDTH, m_r=M_R, lut_entries=E)
     params = tgn.init_params(torch.Generator().manual_seed(SEED), cfg,
                              device)
-    return g, cfg, params
+    return cfg, params
+
+
+def build_variant(variant: str, device) -> tuple:
+    """``(graph, cfg, params)`` of ``variant`` on the Wikipedia path,
+    params on ``device``."""
+    g = wikipedia_graph()
+    return (g, *model(g, variant, device))
 
 
 def build(device) -> tuple:
-    """``(graph, cfg, params)`` of the Wikipedia path, params on
-    ``device``."""
-    return _model(tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0,
-                                                seed=SEED)), device)
+    """``(graph, cfg, params)`` of the student on the Wikipedia path."""
+    return build_variant(STUDENT, device)
 
 
 def build_gdelt(device) -> tuple:
-    """``(graph, cfg, params)`` of the GDELT-like path, params on
-    ``device``; ``graph.node_feats`` is (1000, 200)."""
-    return _model(tgd.gdelt_like(n_edges=GRAPH["n_edges"]), device)
+    """``(graph, cfg, params)`` of the student on the GDELT-like path,
+    params on ``device``; ``graph.node_feats`` is (1000, 200)."""
+    g = tgd.gdelt_like(n_edges=GRAPH["n_edges"])
+    return (g, *model(g, STUDENT, device))

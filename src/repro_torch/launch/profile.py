@@ -2,30 +2,41 @@
 device's idle share, per kernel tier.
 
     PYTHONPATH=src python -m repro_torch.launch.profile
+    PYTHONPATH=src python -m repro_torch.launch.profile --variant teacher \\
+        sat+cosine
+    PYTHONPATH=src python -m repro_torch.launch.profile --variant ladder
 
-Builds the main-path configurations (``launch/main_path.py``: the
-Wikipedia path, then the GDELT-like path), warms each tier's
+Without ``--variant`` it builds the main-path configurations
+(``launch/main_path.py``: the student on the Wikipedia path, then on the
+GDELT-like path); with it, the named registry variants (``ladder``: all of
+``main_path.LADDER``) on the Wikipedia path, each on the tiers that
+resolve to distinct programs (a fused request outside the fused step's
+coverage runs the staged tier, so it is not traced twice). It warms each
+tier's
 StreamingEngine up on 10 batches, then traces the next 20 with
 ``torch.profiler`` (device activity only). For each path and tier (ref,
 staged, fused on the Wikipedia path; ref and staged on the GDELT-like
 path, whose fused request runs the staged tier) it prints the wall time
 per step (host clock around each step, which ends in a synchronize), the
 device-busy time per step (union of the kernel and copy intervals), the
-idle share, the device operations per step, the 12 kernels that take the
-most device time, and the time per step of each of the port's kernels
-(by kernel function, so fused_step's three kernels show apart). Needs a
-CUDA device.
+idle share, the device operations per step, the port's kernel launches
+per step (``kernels.ops`` counts), the 12 kernels that take the most
+device time, and the time per step of each of the port's kernels (by
+kernel function, so fused_step's three kernels show apart). Needs a CUDA
+device.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import re
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core.stages import KERNEL_TIERS
+from repro_torch.core.stages import KERNEL_TIERS, resolved_tier
 from repro_torch.data import stream
+from repro_torch.kernels import ops
 from repro_torch.launch import main_path
 from repro_torch.serving.engine import EngineConfig, StreamingEngine
 from repro_torch.utils import resolve_device
@@ -59,9 +70,11 @@ def profile_tier(path, tier, cfg, params, g, device):
     for b in batches[:WARMUP]:
         eng.process(b)
     n0 = len(eng.metrics)
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for b in batches[WARMUP:]:
             eng.process(b)
+    launches = sum(ops.launch_counts().values()) / STEPS
     wall_ms = sum(m["latency_s"] for m in eng.metrics[n0:]) * 1e3 / STEPS
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -75,7 +88,8 @@ def profile_tier(path, tier, cfg, params, g, device):
                       for e in events) / 1e3 / STEPS
     print(f"profile {path} {tier}: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(events) / STEPS:.1f} device ops/step", flush=True)
+          f"{len(events) / STEPS:.1f} device ops/step, {launches:g} port "
+          f"kernel launches/step", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, us) in ranked[:TOP]:
         print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {name[:90]}")
@@ -89,14 +103,30 @@ def profile_tier(path, tier, cfg, params, g, device):
           flush=True)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variant", nargs="+", default=None,
+                    help="registry names or aliases to trace on the "
+                         "Wikipedia path, or 'ladder' for all of "
+                         "main_path.LADDER")
+    args = ap.parse_args(argv)
     device = resolve_device()
-    for path, build, tiers in (("wikipedia", main_path.build, KERNEL_TIERS),
-                               ("gdelt", main_path.build_gdelt,
-                                ("ref", "staged"))):
-        g, cfg, params = build(device)
+    if args.variant is None:
+        for path, build, tiers in (
+                ("wikipedia", main_path.build, KERNEL_TIERS),
+                ("gdelt", main_path.build_gdelt, ("ref", "staged"))):
+            g, cfg, params = build(device)
+            for tier in tiers:
+                profile_tier(path, tier, cfg, params, g, device)
+        return
+    names = (main_path.LADDER if args.variant == ["ladder"]
+             else args.variant)
+    g = main_path.wikipedia_graph()
+    for name in names:
+        cfg, params = main_path.model(g, name, device)
+        tiers = [t for t in KERNEL_TIERS if resolved_tier(cfg, t) == t]
         for tier in tiers:
-            profile_tier(path, tier, cfg, params, g, device)
+            profile_tier(f"wikipedia {name}", tier, cfg, params, g, device)
 
 
 if __name__ == "__main__":

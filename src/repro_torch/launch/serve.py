@@ -9,10 +9,15 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels ref \\
         --edges 800 --batch 100 --f-mem 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset gdelt
+    PYTHONPATH=src python -m repro_torch.launch.serve --variant teacher \\
+        --edges 800 --batch 100 --f-mem 16 --device cpu
 
-``--dataset gdelt`` serves static node features (f_feat = 200) and no edge
-features; ``--kernels fused`` then runs the staged tier, as in the
-reference, and the printed stages say so.
+``--variant`` takes any registry name or alias of
+``repro_torch.core.pipeline`` (``teacher``, ``"+SAT"``, ``"+NP(S)"``,
+``reservoir``, ...). ``--dataset gdelt`` serves static node features
+(f_feat = 200) and no edge features. A fused request outside the fused
+step's coverage (static node features, the cosine variants) runs the
+staged tier, as in the reference, and the printed stages say so.
 """
 from __future__ import annotations
 
@@ -54,8 +59,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=200)
     ap.add_argument("--f-mem", type=int, default=32)
     ap.add_argument("--variant", default="sat+lut+np4",
-                    help="sat+lut or sat+lut+np<k> (aliases: student, "
-                         "+NP(M), ...)")
+                    help="a registry name or alias: vanilla+cosine "
+                         "(teacher), sat+cosine (+SAT), sat+lut (+LUT), "
+                         "sat+lut+np<k> (+NP(L/M/S), student), "
+                         "sat+lut+np4+uniform, sat+lut+np4+reservoir, or "
+                         "the grammar <attention>+<encoder>[+np<k>]"
+                         "[+<sampler>]")
     ap.add_argument("--kernels", default="staged",
                     choices=("ref", "staged", "fused"),
                     help="kernel tier: torch references, one CUDA kernel "

@@ -33,7 +33,8 @@ from repro_torch.obs import Histogram
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig(FrozenConfig):
-    model: tgn.TGNConfig = tgn.TGNConfig(prune_k=4)     # sat+lut+np4
+    model: tgn.TGNConfig = tgn.TGNConfig(attention="sat", encoder="lut",
+                                         prune_k=4)     # sat+lut+np4
     # kernel tier: "ref" | "staged" | "fused" (bools accepted — see
     # core/stages.KERNEL_TIERS)
     use_kernels: bool | str = True
@@ -86,8 +87,10 @@ class StreamingEngine:
     def from_variant(cls, variant: str, params: dict, edge_feats,
                      node_feats=None, use_kernels=True, prefetch: int = 2,
                      device=None, **dims) -> "StreamingEngine":
-        """Engine over a registry variant (``"sat+lut+np4"``, ...); ``dims``
-        are TGNConfig table/feature fields."""
+        """Engine over a registry variant (``"sat+lut+np4"``,
+        ``"teacher"``, Table-II row names such as ``"+NP(S)"``,
+        ``"reservoir"``, ...); ``dims`` are TGNConfig table/feature
+        fields."""
         model = pl.variant_config(variant, **dims)
         return cls(EngineConfig(model=model, use_kernels=use_kernels,
                                 prefetch=prefetch), params, edge_feats,

@@ -97,10 +97,14 @@ GRU_SHAPES = SHAPES + [(n, 4, f_mem, 5, max(2, n // 3), 7)
 # and, for the EU's tiles of whole batch rows (16 // k of them an m16
 # tile), k = 1, 6 (rows of padding in every tile) and 16 over batch rows
 # off the tile, f_edge = 0 (no edge stages), and odd f_mem / f_edge (rows
-# not 16-byte aligned: the 4-byte copy path)
+# not 16-byte aligned: the 4-byte copy path); and the ladder's np2 and
+# score-all (k = m_r = 10, one batch row a tile) rungs at R = 400 and
+# paper width
 EU_SHAPES = [
     (17, 1, 100, 172, 50, 60),
     (401, 6, 100, 172, 9227, 2000),
+    (400, 2, 100, 172, 9227, 2000),
+    (400, 10, 100, 172, 9227, 2000),
     (1, 16, 8, 5, 3, 4),
     (401, 16, 36, 0, 300, 10),
     (17, 6, 35, 7, 40, 30),
@@ -203,6 +207,36 @@ def test_fused_step_kernel_matches_plain(cuda_device, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["sat_aggregate", "fused_step"])
+@pytest.mark.parametrize("k", [2, 10])
+def test_eu_kernels_mask_invalid_slots_with_large_logits(cuda_device, kernel,
+                                                        k):
+    """Score-all selection (k = m_r) hands the kernels the raw logits of
+    invalid slots: here they sit far above every valid logit, so an EU
+    that did not mask by ``valid`` would weight them and fail."""
+    c = _cases(cuda_device, 400, k, 100, 172, 9227, 2000, seed=k)
+    c["logits"] = torch.where(c["valid"], c["logits"],
+                              torch.full_like(c["logits"], 80.0))
+    assert (~c["valid"][1:]).any() and c["valid"].any()
+    if kernel == "sat_aggregate":
+        p = ops.pack_sat_params(c["w_v"], c["b_v"], c["bounds"],
+                                c["s_table"])
+        args = (c["kv"], c["sel_dt"], c["logits"], c["valid"])
+        got = ops.sat_aggregate(*args, p)
+        want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"],
+                                       p["bounds"], p["table"])
+        torch.testing.assert_close(got, want, **TOL)
+        assert not got[0].any()           # the all-invalid row gives zeros
+        return
+    p = _fused_pack(c)
+    args = tuple(c[n] for n in FUSED_ARGS)
+    got_h, got_s = ops.fused_step(*args, p)
+    want_h, want_s = ops.fused_step_plain(*args, p)
+    torch.testing.assert_close(got_s, want_s, **TOL)
+    torch.testing.assert_close(got_h, want_h, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sat_aggregate", "fused_step"])
 def test_eu_kernel_unaligned_rows_at_an_aligned_width(cuda_device, kernel):
     """f_mem and f_edge multiples of 4, but the row tables start 4 bytes
     past a 16-byte boundary: the EU must take the 4-byte copy path."""
@@ -250,6 +284,43 @@ def test_engine_tier_on_card_matches_ref_on_cpu(cuda_device, tier):
     ref, kern = (e.state for e in engines)
     for f in ref._fields:
         a, b = getattr(kern, f).cpu(), getattr(ref, f)
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, **TRAJ_TOL)
+        else:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["staged", "fused"])
+@pytest.mark.parametrize("variant", ["sat+lut", "sat+lut+np4+reservoir"])
+def test_ladder_kernel_tier_matches_ref_on_card(cuda_device, variant, tier):
+    """Score-all (k = 10) and the reservoir sampler at paper width: the
+    kernel tier and the ref tier, both on the card, over 10 batches; the
+    tiers share the selection code, so their selections are equal."""
+    g = tgd.wikipedia_like(n_edges=600)
+    dims = dict(n_nodes=g.cfg.n_nodes, n_edges=g.n_edges, f_edge=172,
+                f_mem=100, f_time=100, f_emb=100, m_r=10)
+    cfg = pl.variant_config(variant, **dims)
+    params = pl.build_pipeline(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(4))
+    engines = [StreamingEngine(EngineConfig(model=cfg, use_kernels=t),
+                               params, g.edge_feats, device=cuda_device)
+               for t in ("ref", tier)]
+    assert engines[1].describe()["tier"] == tier
+    ops.reset_launch_counts()
+    for batch in stream.fixed_count(g, 60):
+        (rs, rd), (ks, kd) = (e.process(batch) for e in engines)
+        m = torch.as_tensor(batch.valid, device=cuda_device)
+        torch.testing.assert_close(ks[m], rs[m], **TRAJ_TOL)
+        torch.testing.assert_close(kd[m], rd[m], **TRAJ_TOL)
+    counts = ops.launch_counts()
+    names = (("fused_step",) if tier == "fused" else
+             ("lut_encode", "gru_cell", "sat_aggregate"))
+    assert all(counts[n] == (10 if n in names else 0) for n in counts), \
+        counts
+    ref, kern = (e.state for e in engines)
+    for f in ref._fields:
+        a, b = getattr(kern, f), getattr(ref, f)
         if a.dtype.is_floating_point:
             torch.testing.assert_close(a, b, **TRAJ_TOL)
         else:

@@ -224,41 +224,68 @@ def test_last_write_wins_and_commit_match_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tier,packs,muu", [
-    ("ref", set(), True),
-    ("staged", {"packed_gru", "packed_lut_gru", "packed_sat"}, True),
-    ("fused", {"packed_sat", "packed_fused"}, False)])
-def test_tier_builds_only_what_it_runs(tier, packs, muu):
+@pytest.mark.parametrize("variant,tier,packs,muu", [
+    ("sat+lut+np4", "ref", set(), True),
+    ("sat+lut+np4", "staged",
+     {"packed_gru", "packed_lut_gru", "packed_sat"}, True),
+    ("sat+lut+np4", "fused", {"packed_sat", "packed_fused"}, False),
+    ("sat+cosine", "ref", None, True),
+    ("sat+cosine", "staged", None, True),
+    ("sat+cosine", "fused", None, True),
+    ("vanilla+cosine", "ref", None, True),
+    ("vanilla+cosine", "staged", None, True),
+    ("vanilla+cosine", "fused", None, True)])
+def test_tier_builds_only_what_it_runs(variant, tier, packs, muu):
     """Every tier builds the sampler and aggregator (``embed`` runs them;
     on the fused tier they are the staged ones, with ``packed_sat``); the
     memory updater only where ``step`` runs it, the fused body only on the
-    fused tier."""
-    cfg = tpl.variant_config("sat+lut+np4", n_nodes=20, n_edges=30,
+    fused tier. The cosine variants (``packs`` None) prepare nothing and
+    run their torch stages on every tier; a fused request runs the staged
+    tier."""
+    cfg = tpl.variant_config(variant, n_nodes=20, n_edges=30,
                              f_edge=4, f_mem=4, f_time=4, f_emb=4)
     pipe = tpl.TGNPipeline(cfg, tier, device="cpu")
-    assert pipe.tier == tier
+    cosine = packs is None
+    assert pipe.tier == ("staged" if cosine and tier == "fused" else tier)
     aux = pipe.prepare(pipe.init_params())
-    assert set(aux) == {"folded_gru", "folded_attn"} | packs
+    assert set(aux) == (set() if cosine else
+                        {"folded_gru", "folded_attn"} | packs)
     st = pipe.stages
     assert (st.fused is None) == muu
     assert (st.memory_updater is not None) == muu
     assert st.sampler is not None and st.aggregator is not None
     staged = tier != "ref"
-    assert st.names["aggregator"] == ("attn:sat-lut-cuda" if staged
-                                      else "attn:sat-lut-ref")
+    if cosine:
+        attn = "vanilla" if variant.startswith("vanilla") else "sat-cosine"
+        assert st.names["aggregator"] == f"attn:{attn}-ref"
+        assert st.names["memory_updater"] == "gru:cosine-ref"
+    else:
+        assert st.names["aggregator"] == ("attn:sat-lut-cuda" if staged
+                                          else "attn:sat-lut-ref")
 
 
-@pytest.mark.parametrize("field,value,fused", [("encoder", "cosine", False),
-                                               ("sampler", "uniform", True)])
-def test_configs_outside_the_port_are_refused_on_every_tier(field, value,
-                                                            fused):
-    cfg = tpl.variant_config("sat+lut+np4", n_nodes=20, n_edges=30,
-                             f_edge=4, f_mem=4, f_time=4,
-                             f_emb=4).replace(**{field: value})
-    assert stages.fused_supported(cfg) == fused
-    for tier in stages.KERNEL_TIERS:
-        with pytest.raises(ValueError, match="the port covers"):
-            stages.resolved_tier(cfg, tier)
+def _tiny(variant, **kw):
+    return tpl.variant_config(variant, n_nodes=20, n_edges=30, f_edge=4,
+                              f_mem=4, f_time=4, f_emb=4).replace(**kw)
+
+
+@pytest.mark.parametrize("cfg,tiers,match", [
+    (_tiny("teacher", encoder="lut"), stages.KERNEL_TIERS,
+     "requires the cosine encoder"),
+    (_tiny("teacher", sampler="uniform"), stages.KERNEL_TIERS,
+     "require SAT attention"),
+    (_tiny("sat+lut+np4", sampler="bogus"), stages.KERNEL_TIERS,
+     "unknown sampler backend"),
+    (_tiny("sat+lut+np4"), ("bogus", "Fused"), "unknown kernel tier")])
+def test_reference_refusals_hold_on_every_tier(cfg, tiers, match):
+    """What the reference refuses, the port refuses, on every tier: vanilla
+    attention with the LUT encoder or a randomized sampler, an unknown
+    sampler, an unknown tier. Nothing else is refused."""
+    for tier in tiers:
+        with pytest.raises(ValueError, match=match):
+            jpl.TGNPipeline(jpl.tgn.TGNConfig(**cfg.asdict()), tier)
+        with pytest.raises(ValueError, match=match):
+            tpl.TGNPipeline(cfg, tier, device="cpu")
 
 
 def test_static_node_features_are_served_with_fused_resolving_to_staged():
