@@ -58,17 +58,35 @@ without them, and on any failed check. In order it:
     resolved to staged and every model stage named ``-ref``; each run's
     latency and throughput is printed beside the analytic kMAC / kMEM of
     its Table-II row (``core.complexity.table2``);
-10. prints each run's latency/throughput summary;
-11. prints one ``{"kernels": [...]}`` line and, last,
+10. the training phase, on the Wikipedia path's stream cut to 14,284
+    edges (``main_path.train_graph``; its train window is 100 batches of
+    B = 100) at paper width: the teacher ``vanilla+cosine`` trains for 100
+    steps (``train_teacher``) and the student ``sat+lut+np4`` distills
+    from it for 100 steps (``distill_student``, Eq. 17, LUT bounds fitted
+    on the window's inter-event times), each with ms/step and its loss at
+    the start and the end; every loss and parameter must be finite. The
+    first three steps of each, from the same weights and batches, are held
+    to the same steps on the CPU (losses, and the third step's gradients
+    leaf by leaf; ``time.omega``, ill-conditioned at real dt, looser).
+    AP on the test window for both; the student is saved
+    with ``AsyncCheckpointer`` and restored (``restore_valid``) with an
+    equal ``tree_digest``; the restored student serves 20 batches of
+    B = 200 on ref, staged and fused, the kernel tiers held to ref with
+    their launch counts, and the three staged kernels are held to their
+    plain versions with the trained weights and fitted bounds;
+11. prints each run's latency/throughput summary;
+12. prints one ``{"kernels": [...]}`` line and, last,
     ``{"ok": true, "device": {...}}``.
 
-The weights are random, drawn from a seeded ``torch.Generator``.
+The serving phases' weights are random, drawn from a seeded
+``torch.Generator``; the training phase starts from such weights too.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +107,20 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # 50 chained steps: each tier rounds its own fp32 sums, and the GRU carries
 # the rounding from step to step
 TIER_TOL = dict(rtol=1e-4, atol=1e-4)
+N_SERVE_TRAINED = 20
+CPU_STEPS = 3                # training steps held to the CPU's
+# the card's and the CPU's losses: fp32 sums in other orders (and atomic
+# scatters in the card's backward), three chained AdamW steps
+STEP_LOSS_RTOL = 1e-4
+# a gradient leaf against the CPU's, in the L2 norm: ||d|| <= GRAD_RTOL
+# ||g_leaf|| + GRAD_RTOL * 1e-2 ||g_all|| (leaves that are zero in exact
+# arithmetic, e.g. attn.b_k by the softmax's shift invariance, are noise)
+GRAD_RTOL = 1e-4
+# the cosine encoder's omega: d/domega = -sin(omega dt + phi) dt sums the
+# batch's terms with dt up to ~1e6 s, and they cancel, so fp32 summation
+# order moves the result by ~1e-7 of the sum of |terms|, far more than
+# 1e-7 of the result (ill-conditioned at real dt)
+OMEGA_GRAD_RTOL = 2e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -694,6 +726,247 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
                   f"kMEM per embedding", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training: the teacher, the distilled student, and serving it
+# ---------------------------------------------------------------------------
+
+
+def first_steps(TT, opt, tgn, stream, g, cfg, tcfg, device, teacher=None):
+    """The first ``CPU_STEPS`` steps of ``train_teacher`` (``teacher`` is
+    None) or of ``distill_student`` from ``teacher`` = (t_cfg, t_params),
+    on ``device``, from the weights and batches those functions start
+    with. Returns (losses, the last step's gradients), on the CPU."""
+    from repro_torch import tree
+    nf, ef = TT.features(g, cfg, device)
+    ocfg = opt.OptimConfig(name="adamw", lr=tcfg.lr, weight_decay=0.0)
+    train_sl, _, _ = stream.chronological_split(g)
+    if teacher is None:
+        params = tgn.init_params(torch.Generator().manual_seed(tcfg.seed),
+                                 cfg, device)
+        loss_fn = TT.make_teacher_loss(cfg, nf, ef)
+        step = TT.make_teacher_step(cfg, ocfg, nf, ef)
+        states = (tgn.init_state(cfg, device),)
+        seed = tcfg.seed
+    else:
+        t_cfg, t_params = teacher
+        t_params = tree.map(lambda x: x.to(device), t_params)
+        params = tgn.init_params(
+            torch.Generator().manual_seed(tcfg.seed + 7), cfg, device,
+            dt_samples=TT._dt_samples(g, train_sl))
+        loss_fn = TT.make_distill_loss(cfg, t_cfg, tcfg, nf, ef)
+        step = TT.make_distill_step(cfg, t_cfg, ocfg, tcfg, nf, ef)
+        states = (tgn.init_state(cfg, device), tgn.init_state(t_cfg, device))
+        seed = tcfg.seed + 31
+    lead = () if teacher is None else (t_params,)
+    opt_state = opt.init_state(ocfg, params)
+    losses, grads = [], None
+    batches = stream.fixed_count(g, tcfg.batch_size, window=train_sl,
+                                 seed=seed)
+    for i in range(CPU_STEPS):
+        b = TT.batch_tensors(next(batches), device)
+        if i == CPU_STEPS - 1:
+            _, _, grads = TT.value_and_grad(loss_fn, params, *lead, *states,
+                                            b)
+        out = step(params, *lead, opt_state, *states, b)
+        params, opt_state, states = out[0], out[1], out[2:2 + len(states)]
+        loss = out[-1] if teacher is None else out[-1]["total"]
+        losses.append(float(loss))
+    return losses, tree.map(lambda x: x.cpu(), grads)
+
+
+def hold_first_steps(name, TT, opt, tgn, stream, g, cfg, tcfg, dev,
+                     teacher=None) -> None:
+    from repro_torch import tree
+    cpu_teacher = None if teacher is None else (
+        teacher[0], tree.map(lambda x: x.cpu(), teacher[1]))
+    want_l, want_g = first_steps(TT, opt, tgn, stream, g, cfg, tcfg, "cpu",
+                                 cpu_teacher)
+    got_l, got_g = first_steps(TT, opt, tgn, stream, g, cfg, tcfg, dev,
+                               teacher)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+    check(l_err <= STEP_LOSS_RTOL,
+          f"{name}: first {CPU_STEPS} losses on the card {got_l} vs CPU "
+          f"{want_l} (rtol {STEP_LOSS_RTOL})")
+    total = float(torch.sqrt(sum((w ** 2).sum()
+                                 for w in tree.leaves(want_g))))
+    ratios = {}
+    for path, a, b in zip(tree.leaf_paths(got_g), tree.leaves(got_g),
+                          tree.leaves(want_g)):
+        rtol = OMEGA_GRAD_RTOL if path == "time.omega" else GRAD_RTOL
+        norm = float(torch.linalg.vector_norm(b))
+        d = float(torch.linalg.vector_norm(a - b))
+        ratios[path] = (d / (rtol * (norm + 1e-2 * total)), d / max(
+            norm, 1e-30), torch.isfinite(a).all().item())
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"train {name}: first {CPU_STEPS} steps on the card vs the CPU: "
+          f"losses {[f'{x:.6f}' for x in got_l]} (max rel diff "
+          f"{l_err:.3g}, rtol {STEP_LOSS_RTOL}); step {CPU_STEPS} "
+          f"gradients, largest shares of their limit (GRAD_RTOL "
+          f"{GRAD_RTOL}, time.omega {OMEGA_GRAD_RTOL}): "
+          + ", ".join(f"{p} {r:.3g} (rel diff {rel:.3g})"
+                      for p, (r, rel, _) in worst), flush=True)
+    for path, (r, rel, finite) in ratios.items():
+        check(finite and r <= 1.0,
+              f"{name}: gradient {path} on the card vs CPU, rel diff "
+              f"{rel:.3g}, {r:.3g} of its limit")
+
+
+def finite_tree(tree, t) -> bool:
+    return all(torch.isfinite(x).all().item() for x in tree.leaves(t)
+               if x.is_floating_point())
+
+
+def timed(fn):
+    """``(fn(), wall seconds)``, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_trained_kernels(ops, attention, pruning, eng, dt_samples) -> None:
+    """The staged kernels against their plain versions with a trained
+    student's packs (fitted LUT bounds, trained weights): R = 400 rows of
+    the engine's final state, inter-event times drawn from the samples
+    the bounds were fitted on, logits from the trained SAT head."""
+    rng = np.random.RandomState(4)
+    dev, st, aux = eng.device, eng.state, eng.aux
+    cfg = eng.cfg.model
+    R, K, V = 400, cfg.prune_k, cfg.n_nodes
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    dt = t(rng.choice(dt_samples, R).astype(np.float32))
+    # a ring of m_r neighbours a row, most recent first; the trained SAT
+    # head scores them and prune-then-fetch keeps k
+    full_dt = t(np.sort(rng.choice(dt_samples, (R, cfg.m_r)), axis=1)
+                .astype(np.float32))
+    idx, logits, valid = pruning.topk_select(
+        attention.sat_logits(eng.params["attn"], full_dt),
+        t(rng.rand(R, cfg.m_r) > 0.2), K)
+    sel_dt = torch.gather(full_dt, 1, idx)
+    vids = t(rng.randint(0, V, R))
+    nbr, eids = t(rng.randint(0, V, (R, K))), t(rng.randint(
+        0, eng.edge_feats.shape[0], (R, K)))
+    mail, s = st.mail[vids], st.memory[vids]
+    kv = torch.cat([st.memory[nbr], eng.edge_feats[eids]], dim=-1)
+    lut_p, gru_p, sat_p = (aux[k] for k in ("packed_lut_gru", "packed_gru",
+                                            "packed_sat"))
+    extra = ops.lut_encode_plain(dt, lut_p["bounds"], lut_p["table"])
+    gru_w = [gru_p[k] for k in ("w_i", "w_h", "b_i", "b_h")]
+    sat_w = [sat_p[k] for k in ("w_v", "b_v", "bounds", "table")]
+    cases = {
+        "lut_encode": (lambda: ops.lut_encode(dt, lut_p), lambda: extra),
+        "gru_cell": (lambda: ops.gru_cell(mail, s, gru_p, extra=extra),
+                     lambda: ops.gru_cell_plain(mail, s, *gru_w, extra)),
+        "sat_aggregate": (
+            lambda: ops.sat_aggregate(kv, sel_dt, logits, valid, sat_p),
+            lambda: ops.sat_aggregate_plain(kv, sel_dt, logits, valid,
+                                            *sat_w)),
+    }
+    for name, (kern, plain) in cases.items():
+        err = hold(f"trained {name}", kern, plain)
+        print(f"kernel {name} with the trained student's packs (fitted "
+              f"bounds): max_abs_err {err:.3g} (tol {KERNEL_TOL})",
+              flush=True)
+
+
+def run_training(ops, mp, g_full, dev) -> None:
+    from repro_torch import tree
+    from repro_torch.core import attention, pruning, stages, tgn
+    from repro_torch.core import time_encode as te
+    from repro_torch.data import stream
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.training import optim as opt
+    from repro_torch.training import tgn_trainer as TT
+
+    g = mp.train_graph(g_full)
+    t_cfg, s_cfg = mp.config(g, "vanilla+cosine"), mp.config(g, mp.STUDENT)
+    tcfg = TT.TGNTrainConfig(batch_size=mp.TRAIN_B, epochs=1)
+    train_sl, va, te_sl = stream.chronological_split(g)
+    warm = slice(0, va.stop)
+    print(f"train graph: {g.n_edges} edges, train window {train_sl.stop} "
+          f"edges, B = {mp.TRAIN_B}, test window {te_sl.stop - te_sl.start} "
+          f"edges", flush=True)
+
+    (t_params, losses), sec = timed(
+        lambda: TT.train_teacher(g, t_cfg, tcfg, device=dev))
+    check(len(losses) == mp.TRAIN_STEPS and np.isfinite(losses).all(),
+          f"teacher: {mp.TRAIN_STEPS} finite losses")
+    check(finite_tree(tree, t_params), "teacher: finite parameters")
+    ap_t = TT.evaluate_ap(t_params, t_cfg, g, te_sl, batch_size=mp.B,
+                          warm_window=warm, device=dev)
+    print(f"train teacher vanilla+cosine: {len(losses)} steps, "
+          f"{sec * 1e3 / len(losses):.3f} ms/step; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} (mean of the first / last 10: "
+          f"{np.mean(losses[:10]):.6f} / {np.mean(losses[-10:]):.6f}); test "
+          f"AP {ap_t:.6f}", flush=True)
+    hold_first_steps("teacher", TT, opt, tgn, stream, g, t_cfg, tcfg, dev)
+
+    (s_params, parts), sec = timed(lambda: TT.distill_student(
+        g, t_params, t_cfg, s_cfg, tcfg, device=dev))
+    totals = [p["total"] for p in parts]
+    check(len(parts) == mp.TRAIN_STEPS and all(
+        np.isfinite(list(p.values())).all() for p in parts),
+        f"student: {mp.TRAIN_STEPS} finite losses")
+    check(finite_tree(tree, s_params), "student: finite parameters")
+    fitted = te.fit_boundaries(TT._dt_samples(g, train_sl), s_cfg.lut_entries)
+    check(np.array_equal(s_params["time"]["boundaries"].cpu().numpy(),
+                         fitted), "student: LUT bounds fitted and unchanged")
+    ap_s = TT.evaluate_ap(s_params, s_cfg, g, te_sl, batch_size=mp.B,
+                          warm_window=warm, device=dev)
+    print(f"train student {mp.STUDENT}: {len(parts)} distill steps, "
+          f"{sec * 1e3 / len(parts):.3f} ms/step; total loss "
+          f"{totals[0]:.6f} -> {totals[-1]:.6f} (link {parts[0]['link']:.6f}"
+          f" -> {parts[-1]['link']:.6f}, kd {parts[1]['kd']:.6f} (step 2) -> "
+          f"{parts[-1]['kd']:.6f}); test AP {ap_s:.6f} (teacher "
+          f"{ap_t:.6f})", flush=True)
+    hold_first_steps("student", TT, opt, tgn, stream, g, s_cfg, tcfg, dev,
+                     teacher=(t_cfg, t_params))
+
+    root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    saver = ckpt.AsyncCheckpointer(root)
+    saver.save(len(parts), s_params, meta={"ap": ap_s})
+    saver.wait()
+    restored, meta, step = ckpt.restore_valid(root, s_params, device=dev)
+    digest = ckpt.tree_digest(s_params)
+    check(step == len(parts) and meta == {"ap": ap_s}
+          and ckpt.tree_digest(restored) == digest,
+          "student checkpoint restores with an equal digest")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"train checkpoint: step {step} restored, digest {digest}",
+          flush=True)
+
+    runs, engines = {}, {}
+    kernels_of = {"ref": (), "staged": ("lut_encode", "gru_cell",
+                                        "sat_aggregate"),
+                  "fused": ("fused_step",)}
+    for tier in stages.KERNEL_TIERS:
+        ops.reset_launch_counts()
+        eng, embs = run_engine(tier, s_cfg, restored, g, dev,
+                               N_SERVE_TRAINED, mp.B)
+        counts = ops.launch_counts()
+        runs[tier], engines[tier] = (embs, eng.state), eng
+        check(all(counts[n] == (N_SERVE_TRAINED if n in kernels_of[tier]
+                                else 0) for n in counts),
+              f"trained student {tier}: launches {counts}")
+        err = 0.0 if tier == "ref" else compare_tiers(
+            f"trained student {tier} vs ref", runs[tier], runs["ref"],
+            TIER_TOL)
+        sm = eng.summary()
+        print(f"serve trained student {tier}: launches/step "
+              f"{ {n: c / N_SERVE_TRAINED for n, c in counts.items() if c} }"
+              f", max abs diff vs ref {err:.3g} (tol {TIER_TOL}); mean "
+              f"{sm['mean_latency_ms']:.3f} ms, p99 "
+              f"{sm['p99_latency_ms']:.3f} ms, {sm['throughput_eps']:.0f} "
+              f"edges/s", flush=True)
+    check_trained_kernels(ops, attention, pruning, engines["staged"],
+                          TT._dt_samples(g, train_sl))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -761,6 +1034,7 @@ def main() -> int:
     check_embed(ops, tgn, stream, engines, g, mp.B)
     run_gdelt(ops, mp, dev)
     run_ladder(ops, mp, cx, g, dev)
+    run_training(ops, mp, g, dev)
 
     rows = []
     for name, k in kernels.items():

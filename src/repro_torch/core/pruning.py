@@ -32,7 +32,9 @@ def topk_select(logits: torch.Tensor, valid: torch.Tensor, k: int):
 def masked_softmax(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Softmax over valid entries; rows with zero valid entries give zeros."""
     masked = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    m = masked.max(dim=-1, keepdim=True).values
+    # the shift is detached, as the reference stops its gradient; no value
+    # changes
+    m = masked.max(dim=-1, keepdim=True).values.detach()
     e = torch.exp(masked - m) * valid
     z = e.sum(dim=-1, keepdim=True)
     return torch.where(z > 0, e / z.clamp(min=1e-30), torch.zeros_like(e))

@@ -7,6 +7,7 @@ windows (the real-time inference mode). A numpy copy of those parts of
 are padded to a fixed shape so one step shape serves the whole stream
 (padding rows are masked via eid/valid); each carries sampled negative
 destinations for the self-supervised link task.
+``chronological_split`` gives the train/val/test windows.
 """
 from __future__ import annotations
 
@@ -24,6 +25,17 @@ class EdgeBatch(NamedTuple):
     ts: np.ndarray      # (B,) float32
     valid: np.ndarray   # (B,) bool — False on padding rows
     neg_dst: np.ndarray # (B,) int32 — sampled negative destinations
+
+
+def chronological_split(g: TemporalGraph, val: float = 0.15,
+                        test: float = 0.15):
+    """Return (train_slice, val_slice, test_slice) index ranges."""
+    E = g.n_edges
+    n_test = int(E * test)
+    n_val = int(E * val)
+    n_train = E - n_val - n_test
+    return slice(0, n_train), slice(n_train, n_train + n_val), \
+        slice(n_train + n_val, E)
 
 
 def _pad(x: np.ndarray, B: int) -> np.ndarray:

@@ -15,8 +15,15 @@ node features, so on it the staged tier runs.
 All run at paper width (f_mem = f_time = f_emb = 100, m_r = 10, 128 LUT
 entries; the student ``sat+lut+np4`` keeps k = 4) in batches of B = 200
 edges, with random weights from a fixed seed.
+
+``train_graph``: the Wikipedia path's stream cut to its first 14,284
+edges, whose chronological train window is ``TRAIN_STEPS`` batches of
+``TRAIN_B`` edges: the depth at which chip_smoke trains the teacher and
+distills the student.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -35,22 +42,40 @@ STUDENT = f"sat+lut+np{K}"
 #: the ladder served on the Wikipedia path: Table II's rows, then the
 #: student's sampler variants
 LADDER = pl.VARIANTS + pl.SAMPLER_VARIANTS[1:]
+TRAIN_B = 100                # edges per training batch
+TRAIN_STEPS = 100            # batches in the cut stream's train window
 
 
 def wikipedia_graph():
     return tgd.generate(tgd.StreamConfig(**GRAPH, f_feat=0, seed=SEED))
 
 
+def config(g, variant: str) -> tgn.TGNConfig:
+    """``variant`` over graph ``g`` at paper width."""
+    return pl.variant_config(variant, n_nodes=g.cfg.n_nodes,
+                             n_edges=g.n_edges, f_edge=g.cfg.f_edge,
+                             f_feat=g.cfg.f_feat, f_mem=WIDTH, f_time=WIDTH,
+                             f_emb=WIDTH, m_r=M_R, lut_entries=E)
+
+
 def model(g, variant: str, device) -> tuple:
     """``(cfg, params)`` of ``variant`` over graph ``g`` at paper width,
     params on ``device``."""
-    cfg = pl.variant_config(variant, n_nodes=g.cfg.n_nodes,
-                            n_edges=g.n_edges, f_edge=g.cfg.f_edge,
-                            f_feat=g.cfg.f_feat, f_mem=WIDTH, f_time=WIDTH,
-                            f_emb=WIDTH, m_r=M_R, lut_entries=E)
+    cfg = config(g, variant)
     params = tgn.init_params(torch.Generator().manual_seed(SEED), cfg,
                              device)
     return cfg, params
+
+
+def train_graph(g=None) -> tgd.TemporalGraph:
+    """The first 14,284 edges of the Wikipedia path's stream ``g`` (built
+    when not given): ``stream.chronological_split`` keeps 70% of them,
+    ``TRAIN_STEPS`` batches of ``TRAIN_B``, for training."""
+    g = wikipedia_graph() if g is None else g
+    n = 14_284
+    return dataclasses.replace(
+        g, src=g.src[:n], dst=g.dst[:n], ts=g.ts[:n],
+        edge_feats=g.edge_feats[:n], cfg=g.cfg.replace(n_edges=n))
 
 
 def build_variant(variant: str, device) -> tuple:

@@ -5,6 +5,7 @@ device's idle share, per kernel tier.
     PYTHONPATH=src python -m repro_torch.launch.profile --variant teacher \\
         sat+cosine
     PYTHONPATH=src python -m repro_torch.launch.profile --variant ladder
+    PYTHONPATH=src python -m repro_torch.launch.profile --train
 
 Without ``--variant`` it builds the main-path configurations
 (``launch/main_path.py``: the student on the Wikipedia path, then on the
@@ -22,14 +23,18 @@ device-busy time per step (union of the kernel and copy intervals), the
 idle share, the device operations per step, the port's kernel launches
 per step (``kernels.ops`` counts), the 12 kernels that take the most
 device time, and the time per step of each of the port's kernels (by
-kernel function, so fused_step's three kernels show apart). Needs a CUDA
-device.
+kernel function, so fused_step's three kernels show apart). ``--train``
+traces training instead: a teacher step and a distill step of the
+student at paper width on ``main_path.train_graph`` (B = 100), each
+warmed up for 10 steps and traced for the next 20, with the same report.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import re
+import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -76,6 +81,12 @@ def profile_tier(path, tier, cfg, params, g, device):
             eng.process(b)
     launches = sum(ops.launch_counts().values()) / STEPS
     wall_ms = sum(m["latency_s"] for m in eng.metrics[n0:]) * 1e3 / STEPS
+    report(f"{path} {tier}", prof, wall_ms, launches)
+
+
+def report(name, prof, wall_ms, launches) -> None:
+    """Print a traced window's per-step wall and device-busy time, idle
+    share, device ops, the top kernels and the port's kernels."""
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
@@ -86,21 +97,69 @@ def profile_tier(path, tier, cfg, params, g, device):
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy_ms = busy_us((e.time_range.start, e.time_range.end)
                       for e in events) / 1e3 / STEPS
-    print(f"profile {path} {tier}: wall {wall_ms:.3f} ms/step, device busy "
+    print(f"profile {name}: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{len(events) / STEPS:.1f} device ops/step, {launches:g} port "
           f"kernel launches/step", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    for name, (n, us) in ranked[:TOP]:
-        print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {name[:90]}")
+    for kname, (n, us) in ranked[:TOP]:
+        print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {kname[:90]}")
     port = collections.defaultdict(float)
-    for name, (_, us) in by_name.items():
-        m = re.search("|".join(PORT_KERNELS), name)
+    for kname, (_, us) in by_name.items():
+        m = re.search("|".join(PORT_KERNELS), kname)
         if m:
             port[m.group(0)] += us / STEPS
-    print(f"profile {path} {tier}: port kernels us/step "
+    print(f"profile {name}: port kernels us/step "
           f"{ {k: round(v, 2) for k, v in sorted(port.items())} }",
           flush=True)
+
+
+def profile_training(device) -> None:
+    """A teacher step and a distill step of the student, traced."""
+    from repro_torch.core import tgn
+    from repro_torch.training import optim
+    from repro_torch.training import tgn_trainer as TT
+
+    g = main_path.train_graph()
+    t_cfg = main_path.config(g, "vanilla+cosine")
+    s_cfg = main_path.config(g, main_path.STUDENT)
+    tcfg = TT.TGNTrainConfig(batch_size=main_path.TRAIN_B)
+    nf, ef = TT.features(g, t_cfg, device)
+    ocfg = optim.OptimConfig(name="adamw", lr=tcfg.lr, weight_decay=0.0)
+    train_sl, _, _ = stream.chronological_split(g)
+    batches = [TT.batch_tensors(b, device) for b in stream.fixed_count(
+        g, main_path.TRAIN_B, window=slice(0, (WARMUP + STEPS)
+                                           * main_path.TRAIN_B))]
+    t_params = tgn.init_params(torch.Generator().manual_seed(0), t_cfg,
+                               device)
+    s_params = tgn.init_params(torch.Generator().manual_seed(7), s_cfg,
+                               device, dt_samples=TT._dt_samples(g, train_sl))
+    teacher = TT.make_teacher_step(t_cfg, ocfg, nf, ef)
+    distill = TT.make_distill_step(s_cfg, t_cfg, ocfg, tcfg, nf, ef)
+    runs = {
+        # step, its carried arguments, the next carry from its outputs
+        "teacher vanilla+cosine": (
+            teacher, [t_params, optim.init_state(ocfg, t_params),
+                      tgn.init_state(t_cfg, device)],
+            lambda c, out: list(out[:3])),
+        f"distill {main_path.STUDENT}": (
+            distill, [s_params, t_params, optim.init_state(ocfg, s_params),
+                      tgn.init_state(s_cfg, device),
+                      tgn.init_state(t_cfg, device)],
+            lambda c, out: [out[0], c[1], *out[1:4]]),
+    }
+    for name, (step, carry, nxt) in runs.items():
+        for b in batches[:WARMUP]:
+            carry = nxt(carry, step(*carry, b))
+        torch.cuda.synchronize()
+        wall = 0.0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for b in batches[WARMUP:]:
+                t0 = time.perf_counter()
+                carry = nxt(carry, step(*carry, b))
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+        report(f"train {name}", prof, wall * 1e3 / STEPS, 0)
 
 
 def main(argv=None):
@@ -109,8 +168,13 @@ def main(argv=None):
                     help="registry names or aliases to trace on the "
                          "Wikipedia path, or 'ladder' for all of "
                          "main_path.LADDER")
+    ap.add_argument("--train", action="store_true",
+                    help="trace training steps (teacher, distill) instead")
     args = ap.parse_args(argv)
     device = resolve_device()
+    if args.train:
+        profile_training(device)
+        return
     if args.variant is None:
         for path, build, tiers in (
                 ("wikipedia", main_path.build, KERNEL_TIERS),

@@ -14,16 +14,25 @@ CPU.
 Tolerances: the LUT fetch copies table rows, so it must be exact. The
 products are fp32 on both sides, summed in other orders: rtol = atol =
 1e-5. Over a 10-step trajectory the GRU carries the rounding forward:
-1e-4.
+1e-4. A training step on the card against the CPU: the loss to rtol 1e-5,
+each gradient leaf in the L2 norm to 1e-4 of its own norm plus 1e-6 of
+the whole gradient's (leaves that are zero in exact arithmetic are
+rounding noise; the card's backward scatters with atomics, so it is not
+bitwise repeatable), and the next step's loss, after each side's own AdamW
+update, to rtol 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core import pipeline as pl
+from repro_torch.core import tgn
 from repro_torch.data import stream, temporal_graph as tgd
 from repro_torch.kernels import ops
 from repro_torch.serving.engine import EngineConfig, StreamingEngine
+from repro_torch.training import optim
+from repro_torch.training import tgn_trainer as trainer
 
 torch.set_num_threads(1)
 
@@ -444,3 +453,73 @@ def test_kernels_at_gdelt_widths(cuda_device, kernel):
         want = ops.sat_aggregate_plain(*args, p["w_v"], p["b_v"],
                                        p["bounds"], p["table"])
     torch.testing.assert_close(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# training steps on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(variant, dev, dims, g, teacher_params):
+    """Weights, a state three batches in, and the loss and step functions
+    of a teacher step (``variant`` "teacher") or a distill step, on
+    ``dev``."""
+    cfg = pl.variant_config(variant, **dims)
+    t_cfg = pl.variant_config("teacher", **dims)
+    tcfg = trainer.TGNTrainConfig(batch_size=50)
+    nf, ef = trainer.features(g, cfg, dev)
+    ocfg = optim.OptimConfig(name="adamw", lr=1e-3, weight_decay=0.0)
+    tp = tree.map(lambda x: x.to(dev), teacher_params)
+    batches = [trainer.batch_tensors(b, dev)
+               for b in stream.fixed_count(g, 50, window=slice(0, 250))]
+    if variant == "teacher":
+        params, lead, cfgs = tp, (), (cfg,)
+        loss_fn = trainer.make_teacher_loss(cfg, nf, ef)
+        step = trainer.make_teacher_step(cfg, ocfg, nf, ef)
+    else:
+        params = tgn.init_params(torch.Generator().manual_seed(7), cfg, dev,
+                                 dt_samples=trainer._dt_samples(
+                                     g, slice(0, 250)))
+        lead, cfgs = (tp,), (cfg, t_cfg)
+        loss_fn = trainer.make_distill_loss(cfg, t_cfg, tcfg, nf, ef)
+        step = trainer.make_distill_step(cfg, t_cfg, ocfg, tcfg, nf, ef)
+    states = [tgn.init_state(c, dev) for c in cfgs]
+    with torch.no_grad():
+        for b in batches[:3]:
+            states = [pl.build_pipeline(c, device=dev).step_fn(
+                p, st, b[:5], ef).state
+                for c, p, st in zip(cfgs, (params,) + lead, states)]
+    return params, lead, states, batches[3:], loss_fn, step, ocfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["teacher", "sat+lut+np4"])
+def test_training_step_on_card_matches_cpu(cuda_device, variant):
+    g = tgd.wikipedia_like(n_edges=600)
+    dims = dict(n_nodes=g.cfg.n_nodes, n_edges=g.n_edges, f_edge=172,
+                f_mem=100, f_time=100, f_emb=100, m_r=10)
+    teacher = tgn.init_params(torch.Generator().manual_seed(5),
+                              pl.variant_config("teacher", **dims), "cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params, lead, states, (b1, b2), loss_fn, step, ocfg = _train_setup(
+            variant, dev, dims, g, teacher)
+        loss, _, grads = trainer.value_and_grad(loss_fn, params, *lead,
+                                                *states, b1)
+        res = step(params, *lead, optim.init_state(ocfg, params), *states,
+                   b1)
+        params, opt_state, states = res[0], res[1], res[2:-1]
+        loss2, _, _ = trainer.value_and_grad(loss_fn, params, *lead,
+                                             *states, b2)
+        out[str(dev)] = (float(loss), float(loss2),
+                         tree.map(lambda x: x.cpu(), grads))
+    (l1, l2, want), (m1, m2, got) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(m1, l1, rtol=1e-5)
+    np.testing.assert_allclose(m2, l2, rtol=1e-4)
+    total = float(torch.sqrt(sum((w ** 2).sum() for w in tree.leaves(want))))
+    for path, a, b in zip(tree.leaf_paths(got), tree.leaves(got),
+                          tree.leaves(want)):
+        assert torch.isfinite(a).all(), path
+        d = float(torch.linalg.vector_norm(a - b))
+        assert d <= 1e-4 * float(torch.linalg.vector_norm(b)) + \
+            1e-6 * total, (path, d)
