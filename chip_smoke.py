@@ -74,8 +74,23 @@ without them, and on any failed check. In order it:
     B = 200 on ref, staged and fused, the kernel tiers held to ref with
     their launch counts, and the three staged kernels are held to their
     plain versions with the trained weights and fitted bounds;
-11. prints each run's latency/throughput summary;
-12. prints one ``{"kernels": [...]}`` line and, last,
+11. the fleet phase, on the Wikipedia-sized graph at paper width: a
+    ``SessionManager`` of 8 tenants on 5 cohorts (``main_path.FLEET``: 3
+    np4 fused, 2 np4 staged, 1 np4+reservoir fused, 1 sat+lut staged and
+    the teacher on its own registered weights) serves 20 rounds of B = 200
+    a tenant, each on its own window of the stream, through the coalesced
+    round; each kernel must launch once a round per cohort of its lane.
+    Every tenant is held to a StreamingEngine serving its stream alone
+    (within the tier tolerance, integer tables equal), and a tenant on the
+    port's kernels must equal it bit for bit; where one does not, the
+    torch products of the path are scanned and the ones whose rows depend
+    on the rows beside them are printed. A ref-tier cohort of two is held
+    to its solo runs too. Then the coalescing sweep (one np4 fused lane of
+    T = 1, 2, 4, 8, 16 tenants: ms a round, edges/s) and the four kernels
+    at 8 x 400 rows against their plain versions, timed beside their
+    bounds;
+12. prints each run's latency/throughput summary;
+13. prints one ``{"kernels": [...]}`` line and, last,
     ``{"ok": true, "device": {...}}``.
 
 The serving phases' weights are random, drawn from a seeded
@@ -108,6 +123,10 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # the rounding from step to step
 TIER_TOL = dict(rtol=1e-4, atol=1e-4)
 N_SERVE_TRAINED = 20
+#: tenants of the fleet whose shapes the kernels are also timed at, and
+#: the tenant counts of the coalescing sweep
+FLEET_TENANTS = 8
+FLEET_SWEEP = (1, 2, 4, 8, 16)
 CPU_STEPS = 3                # training steps held to the CPU's
 # the card's and the CPU's losses: fp32 sums in other orders (and atomic
 # scatters in the card's backward), three chained AdamW steps
@@ -197,20 +216,22 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(ops, mp, dev, K=None):
+def kernel_cases(ops, mp, dev, K=None, tenants=1):
     """Inputs at the shapes of the main path ``mp`` (launch/main_path.py),
     one case per kernel: name -> (kernel call, plain call, library call or
     None, bytes, flops), and the (bytes, flops) of each of fused_step's
     phases. ``K`` winners a row (the main path's k by default); at another
     K the invalid slots get logits far above the valid ones, so an EU that
-    did not mask them would fail its check."""
+    did not mask them would fail its check. ``tenants``: the shapes a
+    cohort of that many tenants gives the kernels, T·2B rows over stacked
+    tables of T·V + 1 rows."""
     rng = np.random.RandomState(0)
-    R, M, Fe, D = 2 * mp.B, mp.WIDTH, mp.GRAPH["f_edge"], mp.WIDTH
+    R, M, Fe, D = tenants * 2 * mp.B, mp.WIDTH, mp.GRAPH["f_edge"], mp.WIDTH
     E, WIDTH = mp.E, mp.WIDTH
     hot_invalid = K is not None and K != mp.K
     K = mp.K if K is None else K
     F = 2 * M + Fe
-    V = mp.GRAPH["n_users"] + mp.GRAPH["n_items"]
+    V = tenants * (mp.GRAPH["n_users"] + mp.GRAPH["n_items"]) + 1
     NE = mp.GRAPH["n_edges"]
 
     def t(x):
@@ -727,6 +748,238 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the fleet: multi-tenant serving through the session
+# ---------------------------------------------------------------------------
+
+
+def lane_kernels(desc) -> tuple:
+    """The port kernels a cohort's step launches, from its stage names."""
+    if "fused_step" in desc:
+        return ("fused_step",)
+    names = ()
+    if desc.get("memory_updater") == "gru:lut-cuda":
+        names += ("lut_encode", "gru_cell")
+    if desc["aggregator"] == "attn:sat-lut-cuda":
+        names += ("sat_aggregate",)
+    return names
+
+
+def name_row_dependent_products(dev, params, trees, rows) -> None:
+    """Run when a fleet tenant on the port's kernels is not bitwise equal
+    to its solo run, to name the op at fault: whether each torch product
+    of the serving path gives a tenant's rows, inside a cohort of T
+    tenants, bit for bit what it gives them alone: ``attention.sat_logits``
+    with the student's ``params``, and ``X @ w`` and ``X @ w.T`` for every
+    2-D weight ``w`` of ``trees`` that the step reads (the link head's are
+    not), at T = 2, 3, 8, 16 and ``rows`` rows a tenant. Prints each
+    product's largest difference."""
+    from repro_torch import tree
+    from repro_torch.core import attention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    m_r = params["attn"]["w_t"].shape[0]
+    cases = {"attention.sat_logits": (
+        m_r, lambda x: attention.sat_logits(params["attn"], x.abs() * 1e4))}
+    for path, w in (pw for t in trees for pw in tree.flatten_with_path(t)):
+        if w.dim() == 2 and not path.startswith("link."):
+            for name, mat in ((path, w), (f"{path}.T", w.T)):
+                cases.setdefault(f"X @ {name} ({mat.shape[0]} -> "
+                                 f"{mat.shape[1]})",
+                                 (mat.shape[0], lambda x, m=mat: x @ m))
+    for name, (K, fn) in cases.items():
+        worst = {}
+        for T in (2, 3, 8, 16):
+            for r in rows:
+                x = torch.randn((T * r, K), generator=gen, device=dev)
+                full = fn(x)
+                d = max(float((full[t * r:(t + 1) * r]
+                               - fn(x[t * r:(t + 1) * r])).abs().max())
+                        for t in range(T))
+                if d:
+                    worst[(T, r)] = d
+        print(f"fleet product {name}, tenants x rows {[2, 3, 8, 16]} x "
+              f"{list(rows)}: "
+              + ("bitwise equal to each tenant's rows alone" if not worst
+                 else "differs at " + ", ".join(
+                     f"{T} x {r} by {d:.3g}" for (T, r), d in worst.items())),
+              flush=True)
+
+
+def hold_to_solo(name, mgr, tids, feeds, outs, g, dev) -> tuple:
+    """Each tenant of session ``mgr`` (``outs``: its rounds' outputs on
+    ``feeds``, its state now) against a StreamingEngine serving the same
+    stream alone: within ``TIER_TOL``, integer tables equal; prints whether
+    it is bitwise equal and the largest difference. Returns the engines'
+    summed mean batch ms and the tenants on the port's kernels that are
+    not bitwise equal to their solo runs (the ref stages' cuBLAS products
+    need not be)."""
+    from repro_torch.serving.engine import EngineConfig, StreamingEngine
+    solo_ms, unequal = 0.0, []
+    for i, tid in enumerate(tids):
+        c = mgr.cohort_of(tid)
+        eng = StreamingEngine(EngineConfig(model=c.cfg, use_kernels=c.tier),
+                              c.params, g.edge_feats, device=dev)
+        pairs = []
+        for r, out in enumerate(outs):
+            es, ed = eng.process(feeds[i][r])
+            o = out[tid]
+            check(torch.isfinite(o.emb_src).all().item()
+                  and torch.isfinite(o.emb_dst).all().item(),
+                  f"{name} {tid}: finite")
+            pairs += [(f"round {r} emb_src", o.emb_src, es),
+                      (f"round {r} emb_dst", o.emb_dst, ed)]
+        got, ref = mgr.state_of(tid), eng.state
+        pairs += [(f"state {f}", getattr(got, f), getattr(ref, f))
+                  for f in got._fields]
+        diff, same = 0.0, True
+        for what, a, b in pairs:
+            same &= torch.equal(a, b)
+            if a.dtype.is_floating_point:
+                diff = max(diff, float((a - b).abs().max()))
+                check(torch.allclose(a, b, **TIER_TOL),
+                      f"{name} {tid} {what} vs solo within {TIER_TOL}")
+            else:
+                check(torch.equal(a, b), f"{name} {tid} {what} equal")
+        mean = eng.summary()["mean_latency_ms"]
+        solo_ms += mean
+        print(f"{name} {tid} ({c.pipeline.variant}, {c.tier}, a cohort of "
+              f"{c.size}) vs served alone: "
+              f"{'bitwise equal' if same else 'NOT bitwise equal'}, max abs "
+              f"diff {diff:.3g} over {len(outs)} rounds and the final state "
+              f"(tol {TIER_TOL}); solo mean {mean:.3f} ms a batch",
+              flush=True)
+        if not same and lane_kernels(c.pipeline.describe()):
+            unequal.append(tid)
+    return solo_ms, unequal
+
+
+def run_fleet(ops, mp, g, dev) -> dict:
+    """The fleet (``main_path.FLEET``) for ``FLEET_ROUNDS`` rounds through
+    the coalesced round, each tenant on its own window; launch counts
+    checked (each kernel once a round per cohort of its lane), every
+    tenant held to the same tenant served alone by a StreamingEngine, and
+    a ref-tier cohort of two too."""
+    R = mp.FLEET_ROUNDS
+    mgr, tids = mp.fleet_session(g, dev)
+    feeds = mp.fleet_feeds(g, len(tids), R)
+    desc = mgr.describe()
+    for key, c in desc.items():
+        print(f"fleet cohort {key}: tenants {c['tenants']}, tier "
+              f"{c['tier']}, lane {c['lane']}, params {c['param_set']}, "
+              f"kernels {lane_kernels(c)}", flush=True)
+    want = {n: R * sum(n in lane_kernels(c) for c in desc.values())
+            for n in ops.LAUNCHES}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+            for r in range(R)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    sm = mgr.summary()
+    print(f"fleet: {len(tids)} tenants, {len(desc)} cohorts, {R} rounds of "
+          f"B = {mp.B} a tenant: {wall * 1e3 / R:.3f} ms a round over all "
+          f"rounds, {len(tids) * R * mp.B / wall:.0f} edges/s; after the "
+          f"first: mean {sm['mean_round_ms']:.3f} ms, p99 "
+          f"{sm['p99_round_ms']:.3f} ms, {sm['throughput_eps']:.0f} edges/s; "
+          f"round calls a round {sm['launches_per_round']}; kernel launches "
+          f"a round { {n: c / R for n, c in counts.items()} }", flush=True)
+    check(counts == want, f"fleet launches {counts}, want {want} (each "
+          "kernel once a round per cohort of its lane)")
+    check(sm["launches_per_round"] == 1, "fleet: one round call a round")
+
+    solo_ms, unequal = hold_to_solo("fleet", mgr, tids, feeds, outs, g, dev)
+    if unequal:
+        name_row_dependent_products(
+            dev, mgr.params,
+            [mgr.param_store.get(n) for n in mgr.param_store.names()],
+            (2 * mp.B, 2 * mp.B * mp.M_R))
+    check(not unequal, f"fleet tenants on the port's kernels equal their "
+          f"solo runs bit for bit (not: {unequal}; the fleet product lines "
+          "name the op that differs)")
+    solo_eps = len(tids) * mp.B / (solo_ms / 1e3)
+    print(f"fleet vs solo: fleet round {sm['mean_round_ms']:.3f} ms "
+          f"({sm['throughput_eps']:.0f} edges/s) against the {len(tids)} "
+          f"solo engines' summed mean batch {solo_ms:.3f} ms "
+          f"({solo_eps:.0f} edges/s)", flush=True)
+    # the ref tier, whose products are cuBLAS's: a cohort of two held to
+    # its tenants served alone
+    pair, ptids = mp.fleet_session(g, dev, lanes=((mp.STUDENT, "ref",
+                                                   None),) * 2)
+    pouts = [pair.step({t: feeds[i][r] for i, t in enumerate(ptids)})
+             for r in range(R)]
+    hold_to_solo("fleet ref pair", pair, ptids, feeds, pouts, g, dev)
+    return counts
+
+
+def run_fleet_sweep(ops, mp, g, dev) -> None:
+    """The coalescing gain: a single-lane np4 fused fleet at each T of
+    ``FLEET_SWEEP``, swept up and then down (the host's noise shows as the
+    spread between the two passes). After 3 warm-up rounds,
+    ``FLEET_ROUNDS`` rounds back to back (host clock, synchronized at both
+    ends: ms a round and edges/s), then 10 rounds each synchronized (the
+    round's latency: median); 33 rounds of B edges a tenant fit the
+    stream at T = 16."""
+    R, warm, n_lat = mp.FLEET_ROUNDS, 3, 10
+    base = None
+    for T in FLEET_SWEEP + FLEET_SWEEP[::-1]:
+        mgr, tids = mp.fleet_session(g, dev, lanes=((mp.STUDENT, "fused",
+                                                     None),) * T)
+        feeds = mp.fleet_feeds(g, T, warm + R + n_lat)
+
+        def round_(r):
+            mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+
+        for r in range(warm):
+            round_(r)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(warm, warm + R):
+            round_(r)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / R
+        counts = ops.launch_counts()
+        check(counts["fused_step"] == R and sum(counts.values()) == R,
+              f"sweep T = {T}: one fused_step a round ({counts})")
+        lat = []
+        for r in range(warm + R, warm + R + n_lat):
+            t1 = time.perf_counter()
+            round_(r)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        base = ms if base is None else base
+        print(f"fleet sweep T = {T}: {ms:.3f} ms a round back to back "
+              f"({ms / base:.2f}x T = 1), {T * mp.B * 1e3 / ms:.0f} "
+              f"edges/s; synchronized round median {np.median(lat):.3f} "
+              f"ms; fused_step {counts['fused_step'] / R:g} a round over "
+              f"{T * 2 * mp.B} rows", flush=True)
+        del mgr
+        torch.cuda.empty_cache()
+
+
+def check_fleet_kernels(ops, mp, dev, solo) -> dict:
+    """The four kernels at the rows a cohort of ``FLEET_TENANTS`` gives
+    them (T·2B rows, stacked tables), against their plain versions and
+    timed beside their bounds and their times at R = 2B (``solo``)."""
+    T = FLEET_TENANTS
+    cases, _, _ = kernel_cases(ops, mp, dev, tenants=T)
+    rows = {}
+    for name, (kern, plain, _lib, nb, flops) in cases.items():
+        err = hold(f"{name} at {T} tenants", kern, plain)
+        ms = device_ms(kern)
+        b_ms, b_by = bound(nb, flops)
+        print(f"kernel {name} at {T} x {2 * mp.B} rows: max_abs_err "
+              f"{err:.3g} (tol {KERNEL_TOL}); device {ms * 1e3:.2f} us "
+              f"({ms / solo[name]['ms']:.2f}x its {2 * mp.B}-row "
+              f"{solo[name]['ms'] * 1e3:.2f} us), bound {b_ms * 1e3:.3f} us "
+              f"({b_by}: {nb} B, {flops} flop)", flush=True)
+        rows[name] = dict(fleet_rows=T * 2 * mp.B, fleet_ms=ms,
+                          fleet_bound_ms=b_ms, fleet_max_abs_err=err)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # training: the teacher, the distilled student, and serving it
 # ---------------------------------------------------------------------------
 
@@ -1035,6 +1288,11 @@ def main() -> int:
     run_gdelt(ops, mp, dev)
     run_ladder(ops, mp, cx, g, dev)
     run_training(ops, mp, g, dev)
+    counts = run_fleet(ops, mp, g, dev)
+    run_fleet_sweep(ops, mp, g, dev)
+    fleet_rows = check_fleet_kernels(ops, mp, dev, kernels)
+    for name, row in fleet_rows.items():
+        row["fleet_launches"] = counts[name]
 
     rows = []
     for name, k in kernels.items():
@@ -1047,7 +1305,7 @@ def main() -> int:
                      "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
-                     "call_ms": k["call_ms"]})
+                     "call_ms": k["call_ms"], **fleet_rows[name]})
     print("card:", card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

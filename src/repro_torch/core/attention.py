@@ -121,6 +121,14 @@ def init_sat(generator: torch.Generator, cfg: AttnConfig, device) -> dict:
 
 def sat_logits(params: dict, dt_nbr: torch.Tensor) -> torch.Tensor:
     """alpha-bar' = a + W_t dt (Eq. 16), dt log1p-compressed as in the
-    reference."""
+    reference.
+
+    The product over the m_r slots is an elementwise product and a sum
+    over its last axis, so each row's logits are the same whatever rows
+    come with it (PyTorch reduces each output of an m_r-long row with the
+    same threads in the same order at any row count), where a cuBLAS
+    product may pick another algorithm at another row count (an H100 run
+    gave rows that differed by an ulp between 400 and 3,200 rows), and a
+    tenant in a fleet must equal its solo run bit for bit."""
     dtf = torch.log1p(dt_nbr.clamp(min=0.0))
-    return params["a"] + dtf @ params["w_t"].T
+    return params["a"] + (dtf[..., None, :] * params["w_t"]).sum(dim=-1)

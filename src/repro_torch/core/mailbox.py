@@ -2,7 +2,9 @@
 
 Port of ``repro.core.mailbox``. The tables are dense tensors on one device;
 updates are functional (a step returns new tensors), as in the reference,
-so a trajectory can be held against the reference table by table.
+so a trajectory can be held against the reference table by table; a
+serving cohort's stacked tables (``stack_states``) are written in place
+by the ``*_`` functions.
 
 Out-of-bounds indices: the reference sends padding rows to index ``V`` and
 relies on JAX dropping the out-of-bounds scatter and clamping the gather.
@@ -66,54 +68,76 @@ def init_state(cfg: TableConfig, device) -> VertexState:
 def insert_neighbors(state: VertexState, src: torch.Tensor,
                      dst: torch.Tensor, eid: torch.Tensor, ts: torch.Tensor,
                      valid: torch.Tensor | None = None) -> VertexState:
-    """Insert edges (src->dst and dst->src) into the ring buffers.
+    """Insert edges (src->dst and dst->src) into the ring buffers of
+    ``state`` (V rows): ``insert_neighbors_`` on a copy of its tables,
+    returned as a new state."""
+    V = state.nbr_ids.shape[0]
+    tables = insert_neighbors_(stack_states([state], state), src, dst, eid,
+                               ts, valid)
+    return tenant_view(tables, 0, V)
 
-    ``src, dst, eid, ts``: (B,). Each edge contributes dst to src's buffer
-    and src to dst's buffer at the vertex's rotating cursor; a per-vertex
-    chronological occurrence count gives every insert of the batch its own
-    slot, identical to the FIFO pushing edges one by one.
+
+def insert_neighbors_(tables: VertexState, src: torch.Tensor,
+                      dst: torch.Tensor, eid: torch.Tensor, ts: torch.Tensor,
+                      valid: torch.Tensor | None = None) -> VertexState:
+    """Insert edges (src->dst and dst->src) into the ring buffers IN PLACE.
+
+    ``tables`` are ``stack_states`` tables: T tenants' rows, then one
+    scratch row. ``src, dst, eid, ts``: (B,), or (T, B) for a cohort.
+    Each edge contributes dst to src's buffer and src to dst's buffer at
+    the vertex's rotating cursor; a per-vertex chronological occurrence
+    count gives every insert of the batch its own slot, identical to the
+    FIFO pushing edges one by one.
 
     A vertex inserted more than ``m_r`` times in one batch wraps onto slots
     it already wrote in this batch. The reference's scatter then keeps the
     write that comes LAST IN ARRAY ORDER (the ``concat([src, dst])`` layout;
     XLA's CPU scatter runs its updates in order). CUDA scatters promise no
     order, so that rule is made explicit here: only the last writer of each
-    (vertex, slot) pair in array order writes.
+    (vertex, slot) pair in array order writes; the rest write the scratch
+    row.
 
     ``valid``: optional (B,) bool — padding rows write nothing.
+
+    Tenant t's vertex v is row t·V + v. Occurrences and last writers are
+    counted within each tenant's block (its src rows, then its dst rows),
+    never across tenants; the stored neighbour ids stay the tenant's own.
     """
-    V, mr = state.nbr_ids.shape
-    B = src.shape[0]
-    ids = torch.cat([src, dst]).long()               # vertex appended to
-    nbrs = torch.cat([dst, src]).to(torch.int32)     # the neighbor id stored
-    eids = torch.cat([eid, eid]).to(torch.int32)
-    tss = torch.cat([ts, ts]).to(torch.float32)
+    T = src.shape[0] if src.dim() == 2 else 1
+    src, dst, eid, ts = (x.reshape(T, -1) for x in (src, dst, eid, ts))
+    rows = tables.nbr_ids.shape[0] - 1              # real rows, T·V
+    V, mr = rows // T, tables.nbr_ids.shape[1]
+    B = src.shape[1]
+    ids = torch.cat([src, dst], dim=1).long()        # vertex appended to
+    nbrs = torch.cat([dst, src], dim=1).to(torch.int32)  # neighbor stored
+    eids = torch.cat([eid, eid], dim=1).to(torch.int32)
+    tss = torch.cat([ts, ts], dim=1).to(torch.float32)
     if valid is not None:
-        vv = torch.cat([valid, valid])
-        ids = torch.where(vv, ids, torch.full_like(ids, V))   # -> scratch
+        vv = torch.cat([valid, valid], dim=-1).reshape(T, -1)
+        ids = torch.where(vv, ids, torch.full_like(ids, V))  # -> scratch
     occ = _occurrence_index(ids, updater_order(B, ids.device))
-    cur = state.nbr_cursor[ids.clamp(max=V - 1)].long()
+    gid = ids
+    if T > 1:
+        base = torch.arange(T, device=ids.device)[:, None] * V
+        gid = torch.where(ids < V, ids + base, torch.full_like(ids, rows))
+    cur = tables.nbr_cursor[gid.clamp(max=rows - 1)].long()
     slot = (cur + occ) % mr
     # last writer per (vertex, slot) in array order; the rest -> scratch row
-    n = ids.shape[0]
-    same = (ids[None, :] == ids[:, None]) & (slot[None, :] == slot[:, None])
+    n = ids.shape[1]
+    same = ((ids[..., None, :] == ids[..., :, None])
+            & (slot[..., None, :] == slot[..., :, None]))
     later = torch.arange(n, device=ids.device)
     later = later[None, :] > later[:, None]
-    last = ~(same & later).any(dim=1)
-    wid = torch.where(last, ids, torch.full_like(ids, V))
-
-    def put(table, values):
-        ext = torch.cat([table, table.new_zeros((1, mr))])
-        ext[wid, slot] = values
-        return ext[:V]
-
-    counts = torch.zeros(V + 1, dtype=torch.int32, device=ids.device)
-    counts.index_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
-    cursor = (state.nbr_cursor + counts[:V]) % (2 ** 30)
-    return state._replace(nbr_ids=put(state.nbr_ids, nbrs),
-                          nbr_ts=put(state.nbr_ts, tss),
-                          nbr_eid=put(state.nbr_eid, eids),
-                          nbr_cursor=cursor)
+    last = ~(same & later).any(dim=-1)
+    wid = torch.where(last, gid, torch.full_like(gid, rows))
+    tables.nbr_ids[wid, slot] = nbrs
+    tables.nbr_ts[wid, slot] = tss
+    tables.nbr_eid[wid, slot] = eids
+    gid = gid.reshape(-1)
+    tables.nbr_cursor.index_add_(0, gid, torch.ones_like(gid,
+                                                         dtype=torch.int32))
+    tables.nbr_cursor.remainder_(2 ** 30)
+    return tables
 
 
 def updater_order(B: int, device) -> torch.Tensor:
@@ -125,12 +149,34 @@ def updater_order(B: int, device) -> torch.Tensor:
 def _occurrence_index(ids: torch.Tensor,
                       order: torch.Tensor | None = None) -> torch.Tensor:
     """occ[i] = number of j with ids[j]==ids[i] and order[j] < order[i].
-    O(B^2) compare — B is a processing micro-batch."""
+    O(B^2) compare — B is a processing micro-batch. ``ids`` (T, n) counts
+    within each tenant's block."""
     if order is None:
-        order = torch.arange(ids.shape[0], device=ids.device)
-    same = ids[None, :] == ids[:, None]
+        order = torch.arange(ids.shape[-1], device=ids.device)
+    same = ids[..., None, :] == ids[..., :, None]
     before = order[None, :] < order[:, None]
-    return (same & before).sum(dim=1)
+    return (same & before).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# A cohort's stacked tables
+# ---------------------------------------------------------------------------
+
+
+def stack_states(states, scratch: VertexState) -> VertexState:
+    """The tables of ``states`` (T tenants, V rows each) as one state of
+    flat tables of T·V + 1 rows: tenant t's rows at [t·V, (t+1)·V), then
+    one scratch row that every redirected write of the cohort lands in
+    (losers, padding rows) and no vertex reads. ``scratch`` supplies that
+    row's values (any state; its row 0 is taken)."""
+    return VertexState(*(torch.cat([*(getattr(s, f) for s in states),
+                                    getattr(scratch, f)[:1]]).contiguous()
+                         for f in VertexState._fields))
+
+
+def tenant_view(tables: VertexState, i: int, V: int) -> VertexState:
+    """Tenant ``i``'s (V, ...) rows of ``stack_states`` tables (views)."""
+    return VertexState(*(t[i * V:(i + 1) * V] for t in tables))
 
 
 def gather_neighbors(state: VertexState, vids: torch.Tensor):

@@ -11,6 +11,10 @@ Port of ``repro.core.pipeline``:
     h, logits, valid, dt = pipe.embed(params, aux, state, edge_feats,
                                       None, vids, t_query)
 
+A serving fleet steps many tenants' states at once: ``batched_step``
+advances a cohort's stacked tables in place, and ``CoalescedRound`` issues
+every cohort of a round in one call (``serving/session.py``).
+
 Variant registry: canonical specs are
 ``"<attention>+<encoder>[+np<k>][+<sampler>]"`` (samplers:
 ``stages.SAMPLERS``, e.g. ``"sat+lut+np4+reservoir"``); Table-II row names
@@ -21,7 +25,7 @@ A pipeline runs on ``cuda`` unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Mapping, NamedTuple
 
 import torch
 
@@ -211,51 +215,97 @@ class TGNPipeline:
         chronological, last write wins per vertex; padding rows write
         nothing (their embeddings are computed but are garbage the caller
         must mask). ``node_feats`` (n_nodes, f_feat) are the static node
-        features, or None."""
+        features, or None. ``state`` is not modified: this is
+        ``batched_step`` on a one-tenant copy of its tables."""
+        out = self.batched_step(
+            params, aux, mailbox.stack_states([state], state),
+            tuple(None if x is None else x[None] for x in batch),
+            edge_feats, node_feats)
+        return tgn.BatchOut(
+            state=mailbox.tenant_view(out.state, 0, self.cfg.n_nodes),
+            emb_src=out.emb_src[0], emb_dst=out.emb_dst[0],
+            attn_logits=out.attn_logits[0], nbr_valid=out.nbr_valid[0],
+            nbr_dt=out.nbr_dt[0])
+
+    def batched_step(self, params: dict, aux: dict,
+                     tables: mailbox.VertexState, batch,
+                     edge_feats: torch.Tensor,
+                     node_feats: torch.Tensor | None = None) -> tgn.BatchOut:
+        """The cohort step: ``step`` for T tenants at once, each on its own
+        state, committed IN PLACE.
+
+        ``tables`` are the cohort's stacked tables (``mailbox.stack_states``:
+        T·V + 1 rows, tenant t's vertex v at row t·V + v, one scratch row);
+        ``batch`` leaves are (T, B). Rows are tenant-major: tenant t's B
+        src rows, then its B dst rows. Vertex ids are offset by t·V, so
+        every gather, scatter, top-k and kernel call runs once over the
+        T·2B rows; races (last write wins, ring slots) are resolved within
+        each tenant's rows, and edge and node features are shared. Each
+        tenant's results equal ``step`` on its own state. Returns a
+        BatchOut whose leaves carry the tenant axis ((T, B, f_emb),
+        (T, 2B, m_r)) and whose ``state`` is ``tables``."""
         src, dst, eid, ts, valid = batch
-        B = src.shape[0]
-        vids = torch.cat([src, dst])                 # (2B,) involved instances
-        t_inst = torch.cat([ts, ts])
-        vvalid = (torch.cat([valid, valid]) if valid is not None
-                  else torch.ones((2 * B,), dtype=torch.bool,
-                                  device=src.device))
+        T, B = src.shape
+        dev = src.device
+        local = torch.cat([src, dst], dim=1)         # (T, 2B) vertex ids
+        t_inst = torch.cat([ts, ts], dim=1).reshape(-1)
+        vvalid = (torch.cat([valid, valid], dim=1) if valid is not None
+                  else torch.ones((T, 2 * B), dtype=torch.bool, device=dev))
+        base = None
+        vids = local.reshape(-1)                     # (T·2B,) table rows
+        if T > 1:
+            base = (torch.arange(T, dtype=local.dtype, device=dev)
+                    * self.cfg.n_nodes)[:, None].expand(T, 2 * B).reshape(-1)
+            vids = vids + base
         st = self.stages
+        # chronological last-write-wins, raced within each tenant's rows;
+        # the winners serve the memory and the mail commits
+        winners = st.committer.winners(local, vvalid, B).reshape(-1)
+        rows2 = vids.reshape(T, 2, B).long()         # [:, 0] src, [:, 1] dst
 
-        # fused tier: the post-prune datapath is ONE fused_step call (it
-        # covers no node features: fused_supported)
         if st.fused is not None:
-            return st.fused(params, aux, state, batch, vids, t_inst, vvalid,
-                            edge_feats)
-
-        # 1. UPDT: consume cached mail for involved vertices
-        s_upd, lu_upd = st.memory_updater(params, aux, state, vids)
-
-        # 2. chronological commit of memory (winners computed ONCE)
-        winners = st.committer.winners(vids, vvalid, B)
-        state = st.committer.commit_memory(state, vids, winners, s_upd,
-                                           lu_upd)
-
-        # 3. GNN embeddings (sampler + aggregator on updated memory)
-        nb = st.sampler(params, aux, state, edge_feats, vids, t_inst)
-        s_self = state.memory[vids.long()]
-        f_self = node_feats[vids.long()] if node_feats is not None else None
-        h, logits = st.aggregator(params, aux, nb, s_self, f_self)
+            # fused tier: the post-prune datapath is ONE fused_step call (it
+            # covers no node features: fused_supported)
+            h, s_upd, lu_upd, sel = st.fused(params, aux, tables, vids,
+                                             t_inst, winners, edge_feats,
+                                             base)
+            st.committer.commit_memory(tables, vids, winners, s_upd, lu_upd)
+            # the committed memory of a valid row r is exactly s_upd[r]
+            # (duplicates of a vertex compute identical updates), so the
+            # mail needs no post-commit gather
+            s2 = s_upd.reshape(T, 2, B, -1)
+            ms, md = s2[:, 0], s2[:, 1]
+            logits, nvalid, ndt = sel.full_logits, sel.full_valid, sel.full_dt
+        else:
+            # 1. UPDT: consume cached mail for involved vertices
+            s_upd, lu_upd = st.memory_updater(params, aux, tables, vids)
+            # 2. chronological commit of memory
+            st.committer.commit_memory(tables, vids, winners, s_upd, lu_upd)
+            # 3. GNN embeddings (sampler + aggregator on updated memory)
+            nb = st.sampler(params, aux, tables, edge_feats, vids, t_inst,
+                            base)
+            s_self = tables.memory[vids.long()]
+            f_self = (node_feats[local.reshape(-1).long()]
+                      if node_feats is not None else None)
+            h, logits = st.aggregator(params, aux, nb, s_self, f_self)
+            nvalid, ndt = nb.full_valid, nb.full_dt
+            mem_t = tables.memory
+            ms, md = mem_t[rows2[:, 0]], mem_t[rows2[:, 1]]
 
         # 4. cache new messages (Most-Recent aggregator == LWW commit)
-        mem_t = state.memory
-        fe = edge_feats[eid.long()]
-        ms, md = mem_t[src.long()], mem_t[dst.long()]
+        fe = edge_feats[eid.reshape(T, B).long()]
         new_mail = torch.cat([memory.build_mail_raw(ms, md, fe),
-                              memory.build_mail_raw(md, ms, fe)])
-        state = st.committer.commit_mail(state, vids, winners, new_mail,
-                                         t_inst)
+                              memory.build_mail_raw(md, ms, fe)],
+                             dim=1).reshape(T * 2 * B, -1)
+        st.committer.commit_mail(tables, vids, winners, new_mail, t_inst)
 
         # 5. neighbor ring-buffer insertion (FIFO sampler)
-        state = mailbox.insert_neighbors(state, src, dst, eid, ts, valid)
-
-        return tgn.BatchOut(state=state, emb_src=h[:B], emb_dst=h[B:],
-                            attn_logits=logits, nbr_valid=nb.full_valid,
-                            nbr_dt=nb.full_dt)
+        mailbox.insert_neighbors_(tables, src, dst, eid, ts, valid)
+        h = h.reshape(T, 2 * B, -1)
+        return tgn.BatchOut(state=tables, emb_src=h[:, :B], emb_dst=h[:, B:],
+                            attn_logits=logits.reshape(T, 2 * B, -1),
+                            nbr_valid=nvalid.reshape(T, 2 * B, -1),
+                            nbr_dt=ndt.reshape(T, 2 * B, -1))
 
     def embed(self, params: dict, aux: dict, state: mailbox.VertexState,
               edge_feats: torch.Tensor, node_feats: torch.Tensor | None,
@@ -283,7 +333,78 @@ class TGNPipeline:
         """Variant, requested and resolved tier, stage backends."""
         return {"variant": self.variant, "use_kernels": self.use_kernels,
                 "tier": self.tier, "device": str(self.device),
-                **self.stages.names}
+                "lane": self.stages.variant_id, **self.stages.names}
+
+
+class CoalescedRound:
+    """One Python call that advances EVERY cohort of a serving round.
+
+    The cohorts are laid out as contiguous row segments of a common
+    super-batch (rows = the sum of the cohorts' capacities, columns = the
+    widest batch); each segment is advanced by the ``batched_step`` of the
+    pipeline that built it, so every kernel runs once per cohort over the
+    stacked rows of all its tenants. The segments' steps are issued back
+    to back with no host sync in between.
+
+    The lane table is static: segment i's rows are advanced by
+    ``parts[i]``'s program (``stages.variant_id``). Each segment
+    keeps its own width (the cohort's widest batch this round, the width
+    its per-cohort launch would take), so a tenant's rows see the same
+    shapes as when its cohort launches alone. Pad rows (idle tenants,
+    spare slots, batch-width padding) are ``valid=False``: the
+    last-write-wins commits and the ring insert send their writes to the
+    scratch row, so they change no tenant's state.
+
+    ``params`` is a tuple aligned with the segments (a teacher lane and
+    student lanes on their own weights advance in the same round) or one
+    mapping broadcast to every lane. ``edges``, the round's count of valid
+    edges, is summed on the device and left pending.
+
+    ``calls`` counts rounds issued through this layout; ``traces`` counts
+    layout builds: 1 for the life of this object, so a live admission into
+    a spare slot, which reuses it, leaves it unchanged. ``obs`` (a
+    ``MetricsRegistry``) mirrors both into the ``compile.round_traces`` /
+    ``compile.round_calls`` gauges.
+    """
+
+    def __init__(self, parts, *, obs=None):
+        """``parts``: ``(pipeline, aux, rows)`` a cohort, ``rows`` its
+        capacity (tenant slots)."""
+        self.parts = tuple((p, a, int(r)) for p, a, r in parts)
+        segments, lo = [], 0
+        for _pipe, _aux, rows in self.parts:
+            segments.append((lo, lo + rows))
+            lo += rows
+        self.segments = tuple(segments)
+        self.rows = lo
+        self.calls = 0
+        self.traces = 1
+        self._g_calls = None
+        if obs is not None:
+            obs.gauge("compile.round_traces").set(self.traces)
+            self._g_calls = obs.gauge("compile.round_calls")
+            self._g_calls.set(0)
+
+    def __call__(self, params, states: tuple, superbatch: tuple,
+                 edge_feats, node_feats=None, *, widths: tuple | None = None):
+        """``states``: the cohorts' stacked tables, aligned with the
+        segments; ``superbatch``: (rows, width) src, dst, eid, ts, valid.
+        Returns ``(outs, edges)``: a ``batched_step`` BatchOut a cohort,
+        and the round's valid-edge count as a device scalar."""
+        if widths is None:
+            widths = (superbatch[0].shape[1],) * len(self.parts)
+        if isinstance(params, Mapping):      # shared-params fleet
+            params = (params,) * len(self.parts)
+        self.calls += 1
+        if self._g_calls is not None:
+            self._g_calls.set(self.calls)
+        outs = []
+        for (lo, hi), (pipe, aux, _rows), p, state, w in zip(
+                self.segments, self.parts, params, states, widths):
+            seg = tuple(x[lo:hi, :w] for x in superbatch)
+            outs.append(pipe.batched_step(p, aux, state, seg, edge_feats,
+                                          node_feats))
+        return tuple(outs), superbatch[4].sum()
 
 
 def build_pipeline(spec, use_kernels=False, device=None,

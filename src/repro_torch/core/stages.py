@@ -109,7 +109,26 @@ class StageBundle(NamedTuple):
     aggregator: object          # (params, aux, nb, s_self, f_self) -> (h, logits)
     committer: object           # LastWriteWinsCommitter
     names: dict                 # stage name -> backend label
-    fused: object = None        # fused tier only: the one-call step body
+    variant_id: int             # lane id of this stage program (variant_lane)
+    fused: object = None        # fused tier only: the post-prune datapath
+
+
+#: Lane ids: every distinct resolved stage PROGRAM (the knobs that change
+#: which code runs inside ``TGNPipeline.step``, not the table dims) gets a
+#: small stable integer; a cohort's ``describe()`` reports it as ``lane``.
+_VARIANT_LANES: dict[tuple, int] = {}
+
+
+def variant_lane(cfg, use_kernels=False) -> int:
+    """The lane id of ``cfg``'s resolved stage program. Two configs share a
+    lane iff ``build_stages`` resolves them to the same code: attention,
+    encoder, prune budget and sampler (tau too for the reservoir, which its
+    closure bakes in), the RESOLVED kernel tier and the ring width the
+    prune clamp sees."""
+    key = (cfg.attention, cfg.encoder, cfg.prune_k, cfg.sampler,
+           float(cfg.reservoir_tau) if cfg.sampler == "reservoir" else None,
+           resolved_tier(cfg, use_kernels), cfg.m_r)
+    return _VARIANT_LANES.setdefault(key, len(_VARIANT_LANES))
 
 
 # ---------------------------------------------------------------------------
@@ -244,14 +263,17 @@ def _stateless_uniform(eid: torch.Tensor, vids: torch.Tensor,
 
 
 def make_selector(cfg):
-    """``select(params, aux, state, vids, t_query) -> Selection``: the k
-    winners from the ring buffer's timestamps/ids only. "recent" ranks by
-    SAT logit; "uniform" and "reservoir" by a stateless-hash priority."""
+    """``select(params, aux, state, vids, t_query, base=None) ->
+    Selection``: the k winners from the ring buffer's timestamps/ids only.
+    "recent" ranks by SAT logit; "uniform" and "reservoir" by a
+    stateless-hash priority. ``vids`` are rows of the tables; over a
+    cohort's stacked tables ``base`` holds each row's t·V, and the winner
+    ids stay the tenant's own (ring contents)."""
     k = min(cfg.prune_k if cfg.prune_k is not None else cfg.m_r, cfg.m_r)
     policy = cfg.sampler
     tau = float(cfg.reservoir_tau)
 
-    def select(params, aux, state, vids, t_query):
+    def select(params, aux, state, vids, t_query, base=None):
         nbr_ids, nbr_ts, nbr_eid, valid = mailbox.gather_neighbors(
             state, vids)
         dt = (t_query[:, None] - nbr_ts).clamp(min=0.0) * valid
@@ -262,7 +284,10 @@ def make_selector(cfg):
         else:
             prio = logits
             if policy != "recent":
-                prio = _stateless_uniform(nbr_eid, vids, t_query)
+                # the tenant's own vertex ids: a tenant draws as it would
+                # alone
+                prio = _stateless_uniform(
+                    nbr_eid, vids if base is None else vids - base, t_query)
                 if policy == "reservoir":
                     # key = u^(1/w), w = exp(-dt/tau); rank by log key
                     prio = torch.log(prio) * torch.exp(
@@ -287,10 +312,17 @@ def make_selector(cfg):
     return select, name
 
 
+def _rows_of(ids: torch.Tensor, base: torch.Tensor | None) -> torch.Tensor:
+    """Table rows of a tenant's vertex ids ``ids`` (R, k): + its t·V."""
+    ids = ids.long()
+    return ids if base is None else ids + base[:, None]
+
+
 def make_sampler(cfg):
-    """``sampler(params, aux, state, edge_feats, vids, t_query) ->
-    Neighborhood``. SAT: selection metadata, then ONLY the winners' rows.
-    Vanilla: every ring slot's rows (its scores need neighbor memory)."""
+    """``sampler(params, aux, state, edge_feats, vids, t_query, base=None)
+    -> Neighborhood``. SAT: selection metadata, then ONLY the winners'
+    rows. Vanilla: every ring slot's rows (its scores need neighbor
+    memory). ``base`` as for ``make_selector``."""
     if cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler backend {cfg.sampler!r}; "
                          f"registered backends: {SAMPLERS}")
@@ -302,13 +334,14 @@ def make_sampler(cfg):
                 f"slot, so there is no selection to randomize; got "
                 f"sampler={cfg.sampler!r}")
 
-        def sampler(params, aux, state, edge_feats, vids, t_query):
+        def sampler(params, aux, state, edge_feats, vids, t_query,
+                    base=None):
             nbr_ids, nbr_ts, nbr_eid, valid = mailbox.gather_neighbors(
                 state, vids)
             dt = (t_query[:, None] - nbr_ts).clamp(min=0.0) * valid
             vmask = valid[..., None]
             return Neighborhood(
-                s_nbr=state.memory[nbr_ids.long()] * vmask,
+                s_nbr=state.memory[_rows_of(nbr_ids, base)] * vmask,
                 e_nbr=edge_feats[nbr_eid.long()] * vmask, dt=dt, valid=valid,
                 logits=None, full_logits=dt * 0.0, full_valid=valid,
                 full_dt=dt)
@@ -317,10 +350,10 @@ def make_sampler(cfg):
 
     select, name = make_selector(cfg)
 
-    def sampler(params, aux, state, edge_feats, vids, t_query):
-        sel = select(params, aux, state, vids, t_query)
+    def sampler(params, aux, state, edge_feats, vids, t_query, base=None):
+        sel = select(params, aux, state, vids, t_query, base)
         vmask = sel.valid[..., None]
-        s_nbr = state.memory[sel.ids.long()] * vmask
+        s_nbr = state.memory[_rows_of(sel.ids, base)] * vmask
         e_nbr = edge_feats[sel.eids.long()] * vmask
         return Neighborhood(s_nbr=s_nbr, e_nbr=e_nbr, dt=sel.dt,
                             valid=sel.valid, logits=sel.logits,
@@ -389,7 +422,9 @@ def make_aggregator(cfg, staged: bool):
 class LastWriteWinsCommitter:
     """Per batch, exactly the chronologically-last valid update of each
     vertex survives. The winner mask is computed once per batch and shared
-    by the memory commit and the mail commit."""
+    by the memory commit and the mail commit. ``vids`` (2B,) — or (T, 2B)
+    for a cohort, raced within each tenant's block. The commits write a
+    cohort's stacked tables in place (``updater.commit_``)."""
 
     def winners(self, vids, vvalid, B: int):
         return updater.last_write_wins(
@@ -397,21 +432,17 @@ class LastWriteWinsCommitter:
 
     def commit_memory(self, state, vids, winners, s_upd, lu_upd):
         """Commit updated memory rows; consuming mail invalidates it."""
-        return state._replace(
-            memory=updater.commit(state.memory, vids, s_upd, winners),
-            last_update=updater.commit_scalar(state.last_update, vids,
-                                              lu_upd, winners),
-            mail_valid=updater.commit_scalar(
-                state.mail_valid, vids, torch.zeros_like(winners), winners))
+        updater.commit_(state.memory, vids, s_upd, winners)
+        updater.commit_(state.last_update, vids, lu_upd, winners)
+        updater.commit_(state.mail_valid, vids, torch.zeros_like(winners),
+                        winners)
 
     def commit_mail(self, state, vids, winners, new_mail, t_inst):
         """Cache new messages (Most-Recent aggregator == LWW commit)."""
-        return state._replace(
-            mail=updater.commit(state.mail, vids, new_mail, winners),
-            mail_ts=updater.commit_scalar(state.mail_ts, vids, t_inst,
-                                          winners),
-            mail_valid=updater.commit_scalar(
-                state.mail_valid, vids, torch.ones_like(winners), winners))
+        updater.commit_(state.mail, vids, new_mail, winners)
+        updater.commit_(state.mail_ts, vids, t_inst, winners)
+        updater.commit_(state.mail_valid, vids, torch.ones_like(winners),
+                        winners)
 
 
 # ---------------------------------------------------------------------------
@@ -420,54 +451,44 @@ class LastWriteWinsCommitter:
 
 
 def make_fused_step(cfg):
-    """The fused-tier step body: selection metadata -> ONE fused_step call
-    (MUU + winner gather + EU) -> state commits and ring insert.
+    """The fused tier's post-prune datapath: selection metadata, then ONE
+    fused_step call (MUU + winner gather + EU). ``fused(params, aux, state,
+    vids, t_inst, winners, edge_feats, base=None) -> (h, s_upd, lu_upd,
+    sel)``; the pipeline commits, builds the mail from ``s_upd`` and
+    inserts the ring after it.
 
     Only ids, timestamps and validity are computed outside the call; the
-    memory, mail and edge-feature rows are read inside it. The mail build
-    and the commits stay in torch after the call.
+    memory, mail and edge-feature rows are read inside it. Over a cohort's
+    stacked tables (``base`` the rows' t·V) the winner ids are offset to
+    table rows and ``hit`` names rows of the whole T·2B batch, so one call
+    serves every tenant.
     """
-    from repro_torch.core import tgn             # BatchOut (no cycle)
-
     select, _ = make_selector(cfg)
-    committer = LastWriteWinsCommitter()
-    V = cfg.n_nodes
 
-    def fused(params, aux, state, batch, vids, t_inst, vvalid, edge_feats):
-        src, dst, eid, ts, valid = batch
-        B = src.shape[0]
+    def fused(params, aux, state, vids, t_inst, winners, edge_feats,
+              base=None):
         R = vids.shape[0]
-        winners = committer.winners(vids, vvalid, B)
-        sel = select(params, aux, state, vids, t_inst)
+        rows = state.memory.shape[0]
+        sel = select(params, aux, state, vids, t_inst, base)
         vl = vids.long()
+        sel_rows = _rows_of(sel.ids, base)
         mail_ts = state.mail_ts[vl]
         lu_prev = state.last_update[vl]
         mail_ok = state.mail_valid[vl]
         # winner-row redirect (ids only): hit[r, j] >= 0 names the batch row
         # whose phase-0 output IS the committed memory of winner (r, j).
-        win_rows = torch.full((V + 1,), -1, dtype=torch.int32,
+        win_rows = torch.full((rows + 1,), -1, dtype=torch.int32,
                               device=vids.device)
-        win_rows[torch.where(winners, vl, torch.full_like(vl, V))] = \
+        win_rows[torch.where(winners, vl, torch.full_like(vl, rows))] = \
             torch.arange(R, dtype=torch.int32, device=vids.device)
-        hit = win_rows[sel.ids.long()]
+        hit = win_rows[sel_rows]
         h, s_upd = kops.fused_step(
-            vids, sel.ids, sel.eids, hit, mail_ts - lu_prev, mail_ok, sel.dt,
-            sel.logits, sel.valid, state.memory, state.mail, edge_feats,
+            vids, sel_rows.to(torch.int32) if base is not None else sel.ids,
+            sel.eids, hit, mail_ts - lu_prev, mail_ok, sel.dt, sel.logits,
+            sel.valid, state.memory, state.mail, edge_feats,
             aux["packed_fused"])
         lu_upd = torch.where(mail_ok, mail_ts, lu_prev)
-        state = committer.commit_memory(state, vids, winners, s_upd, lu_upd)
-        # mail build from s_upd: the committed memory of a valid row r is
-        # exactly s_upd[r] (duplicates of a vertex compute identical
-        # updates), so no post-commit gather is needed.
-        fe = edge_feats[eid.long()]
-        new_mail = torch.cat([
-            memory.build_mail_raw(s_upd[:B], s_upd[B:], fe),
-            memory.build_mail_raw(s_upd[B:], s_upd[:B], fe)])
-        state = committer.commit_mail(state, vids, winners, new_mail, t_inst)
-        state = mailbox.insert_neighbors(state, src, dst, eid, ts, valid)
-        return tgn.BatchOut(state=state, emb_src=h[:B], emb_dst=h[B:],
-                            attn_logits=sel.full_logits,
-                            nbr_valid=sel.full_valid, nbr_dt=sel.full_dt)
+        return h, s_upd, lu_upd, sel
 
     return fused
 
@@ -483,6 +504,7 @@ def build_stages(cfg, use_kernels=False) -> StageBundle:
                          "(its K/Q/V inputs consume the cosine encoding "
                          "directly; LUT is a SAT-path optimization)")
     tier = resolved_tier(cfg, use_kernels)
+    lane = variant_lane(cfg, use_kernels)
     sampler, sampler_name = make_sampler(cfg)
     aggregator, agg_name = make_aggregator(cfg, tier != "ref")
     names = {"sampler": sampler_name, "aggregator": agg_name,
@@ -492,8 +514,9 @@ def build_stages(cfg, use_kernels=False) -> StageBundle:
         return StageBundle(memory_updater=None, sampler=sampler,
                            aggregator=aggregator,
                            committer=LastWriteWinsCommitter(), names=names,
-                           fused=make_fused_step(cfg))
+                           variant_id=lane, fused=make_fused_step(cfg))
     muu, names["memory_updater"] = make_memory_updater(cfg, tier == "staged")
     return StageBundle(memory_updater=muu, sampler=sampler,
                        aggregator=aggregator,
-                       committer=LastWriteWinsCommitter(), names=names)
+                       committer=LastWriteWinsCommitter(), names=names,
+                       variant_id=lane)

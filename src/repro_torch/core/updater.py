@@ -13,16 +13,20 @@ def last_write_wins(ids: torch.Tensor, valid: torch.Tensor | None = None,
                     order: torch.Tensor | None = None) -> torch.Tensor:
     """Winner mask: True where row i is the chronologically-last valid
     occurrence of ids[i]. ``order`` gives each row's chronological position
-    (defaults to array order); ``valid`` rows excluded from the race."""
-    n = ids.shape[0]
+    (defaults to array order); ``valid`` rows excluded from the race.
+
+    ``ids`` is (n,), or (T, n) for a cohort of T tenants: the race then
+    runs within each tenant's block of n rows, as a (T, n, n) compare, so
+    rows of different tenants are never compared."""
+    n = ids.shape[-1]
     if order is None:
         order = torch.arange(n, device=ids.device)
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=ids.device)
-    same = (ids[None, :] == ids[:, None]) & valid[None, :]
-    eff = torch.where(same, order[None, :], torch.full_like(same, -1,
-                                                           dtype=order.dtype))
-    last = eff.max(dim=1).values
+        valid = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    same = (ids[..., None, :] == ids[..., :, None]) & valid[..., None, :]
+    eff = torch.where(same, order, torch.full_like(same, -1,
+                                                   dtype=order.dtype))
+    last = eff.max(dim=-1).values
     return (order == last) & valid
 
 
@@ -33,20 +37,20 @@ def interleave_order(B: int, device) -> torch.Tensor:
     return torch.cat([2 * a, 2 * a + 1])
 
 
+def commit_(table: torch.Tensor, ids: torch.Tensor, values: torch.Tensor,
+            winners: torch.Tensor) -> torch.Tensor:
+    """Scatter winner rows into ``table`` IN PLACE and return it. The
+    table's last row is a scratch row (``mailbox.stack_states``) that the
+    losers write, which keeps the scatter collision-free for real rows and
+    free of host syncs."""
+    safe_ids = torch.where(winners, ids.long(), table.shape[0] - 1)
+    table[safe_ids] = values.to(table.dtype)
+    return table
+
+
 def commit(table: torch.Tensor, ids: torch.Tensor, values: torch.Tensor,
            winners: torch.Tensor) -> torch.Tensor:
-    """Scatter winner rows into ``table`` (V, ...). Losers are redirected to
-    a scratch row appended at index V and sliced off, which keeps the
-    scatter collision-free for real rows and free of host syncs."""
-    V = table.shape[0]
-    safe_ids = torch.where(winners, ids.long(),
-                           torch.full_like(ids, V, dtype=torch.long))
+    """``commit_`` into a copy of ``table`` (V, ...) extended by a scratch
+    row at index V, which is sliced off: a new table."""
     ext = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
-    ext[safe_ids] = values.to(table.dtype)
-    return ext[:V]
-
-
-def commit_scalar(table: torch.Tensor, ids: torch.Tensor,
-                  values: torch.Tensor, winners: torch.Tensor) -> torch.Tensor:
-    """commit() for (V,)-shaped tables."""
-    return commit(table, ids, values, winners)
+    return commit_(ext, ids, values, winners)[:table.shape[0]]

@@ -18,6 +18,12 @@ kernel on the current stream, or raises. It never falls back.
 launches its kernels (``fused_step``'s three back-to-back kernels are
 one call, as in the reference), so a run can show that its main path went
 through the kernels.
+
+Rows are independent in every kernel: an output row depends only on its
+own inputs. So a cohort of T tenants (``TGNPipeline.batched_step``) calls
+each entry point once over the T·2B rows of all its tenants, with vertex
+ids offset into stacked (T·V + 1, ...) tables. Ids are int32 and a grid's
+y dimension holds at most 65,535 blocks; the entry points check both.
 """
 from __future__ import annotations
 
@@ -58,6 +64,39 @@ def _check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+#: the largest grid.y of a launch; rows ride on grid.y in gru_cell,
+#: sat_aggregate and the three fused_step kernels
+MAX_GRID_Y = 65535
+#: rows a block of rt::gru_update (kGruRows) and of the output transform
+#: (OutShape::kRows); the EU's block takes EU_MTILES m16 tiles of k-row
+#: groups (kEuMTiles)
+GRU_ROWS, OUT_ROWS, EU_MTILES = 16, 16, 2
+
+
+def _check_grid_rows(name: str, rows: int, per_block: int) -> None:
+    """``rows`` on grid.y at ``per_block`` rows a block must fit
+    ``MAX_GRID_Y`` blocks."""
+    blocks = -(-rows // per_block)
+    if blocks > MAX_GRID_Y:
+        raise ValueError(
+            f"{name}: {rows} rows need {blocks} blocks on grid.y at "
+            f"{per_block} rows a block; a launch takes at most "
+            f"{MAX_GRID_Y} (at most {MAX_GRID_Y * per_block} rows)")
+
+
+def _check_table_rows(name: str, t: torch.Tensor) -> None:
+    """Rows of a table addressed by int32 ids (a cohort's stacked tables
+    hold T·(V + 1) rows or fewer)."""
+    if t.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name} has {t.shape[0]} rows; int32 ids address "
+                         f"fewer than 2**31")
+
+
+def eu_rows_per_block(k: int) -> int:
+    """Batch rows a block of rt::sat_eu takes at k winners a row."""
+    return EU_MTILES * (16 // k)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -337,6 +376,7 @@ def gru_cell(mail: torch.Tensor, s: torch.Tensor, packed: dict,
     _check_gru_tc(w_tc, F, M)
     _check_shape("b_i", b_i, (3 * M,))
     _check_shape("b_h", b_h, (3 * M,))
+    _check_grid_rows("gru_cell", n, GRU_ROWS)
     out = torch.empty((n, M), dtype=F32, device=dev)
     _launch("rt_gru_cell", dev, mail, s, extra, w_tc, b_i, b_h, out, n, F,
             M)
@@ -399,6 +439,7 @@ def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
     _check_rows_tc("w_tc", w_tc, (dkv,), D, EU_DEPTH, EU_COLS)
     _check_shape("b_v", b_v, (D,))
     _check_bounds("bounds", bounds, E)
+    _check_grid_rows("sat_aggregate", B, eu_rows_per_block(k))
     out = torch.empty((B, D), dtype=F32, device=dev)
     _launch("rt_sat_aggregate", dev, kv, dt, logits, valid, w_tc, b_v,
             bounds, table, out, B, k, dkv, D, E)
@@ -500,6 +541,10 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     _check_rows_tc("wout_tc", p["wout_tc"], (M, D), Femb, OUT_DEPTH,
                    OUT_COLS)
     _check_shape("b_out", p["b_out"], (Femb,))
+    _check_table_rows("memory", memory)
+    _check_table_rows("edge_feats", edge_feats)
+    for per_block in (GRU_ROWS, eu_rows_per_block(k), OUT_ROWS):
+        _check_grid_rows("fused_step", R, per_block)
     h = torch.empty((R, Femb), dtype=F32, device=dev)
     s_upd = torch.empty((R, M), dtype=F32, device=dev)
     agg = torch.empty((R, D), dtype=F32, device=dev)   # EU -> out scratch

@@ -20,6 +20,10 @@ edges, with random weights from a fixed seed.
 edges, whose chronological train window is ``TRAIN_STEPS`` batches of
 ``TRAIN_B`` edges: the depth at which chip_smoke trains the teacher and
 distills the student.
+
+``fleet_session``: a multi-tenant session on the Wikipedia path (``FLEET``:
+eight tenants on five lanes, the teacher on its own parameter set), and
+``fleet_feeds``: each tenant's own contiguous window of the stream.
 """
 from __future__ import annotations
 
@@ -42,6 +46,15 @@ STUDENT = f"sat+lut+np{K}"
 #: the ladder served on the Wikipedia path: Table II's rows, then the
 #: student's sampler variants
 LADDER = pl.VARIANTS + pl.SAMPLER_VARIANTS[1:]
+#: the fleet: (variant, tier, parameter set; None = the session's default,
+#: the student's weights). 3 np4 fused, 2 np4 staged, 1 np4 + reservoir
+#: fused, 1 sat+lut staged (the EU at k = 10), and the teacher on its own
+#: weights (staged: its stages have no kernel); five cohorts.
+FLEET = (((STUDENT, "fused", None),) * 3 + ((STUDENT, "staged", None),) * 2
+         + ((f"{STUDENT}+reservoir", "fused", None),
+            ("sat+lut", "staged", None),
+            ("vanilla+cosine", "staged", "teacher")))
+FLEET_ROUNDS = 20            # rounds of B edges a tenant
 TRAIN_B = 100                # edges per training batch
 TRAIN_STEPS = 100            # batches in the cut stream's train window
 
@@ -95,3 +108,31 @@ def build_gdelt(device) -> tuple:
     params on ``device``; ``graph.node_feats`` is (1000, 200)."""
     g = tgd.gdelt_like(n_edges=GRAPH["n_edges"])
     return (g, *model(g, STUDENT, device))
+
+
+def fleet_session(g, device, lanes=FLEET, coalesce: bool = True):
+    """``(session, tenant ids)``: one tenant a lane of ``lanes`` on graph
+    ``g`` at paper width, on the student's weights unless the lane names a
+    parameter set (registered with weights for its variant, from the
+    seed)."""
+    from repro_torch.serving.session import SessionManager
+    cfg, params = model(g, STUDENT, device)
+    mgr = SessionManager(params, g.edge_feats, g.node_feats, model=cfg,
+                         use_kernels="staged", coalesce=coalesce,
+                         device=device)
+    for variant, _tier, pset in lanes:
+        if pset is not None and pset not in mgr.param_store:
+            mgr.register_params(pset, model(g, variant, device)[1])
+    tids = [mgr.add_tenant(v, use_kernels=tier, params=pset, name=f"t{i}")
+            for i, (v, tier, pset) in enumerate(lanes)]
+    return mgr, tids
+
+
+def fleet_feeds(g, n_tenants: int, rounds: int) -> list:
+    """Tenant i's ``rounds`` batches of B edges: its own contiguous window
+    of the stream, edges [i * rounds * B, (i + 1) * rounds * B)."""
+    from repro_torch.data import stream
+    span = rounds * B
+    return [list(stream.fixed_count(g, B, window=slice(i * span,
+                                                       (i + 1) * span)))
+            for i in range(n_tenants)]

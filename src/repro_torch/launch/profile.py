@@ -6,6 +6,9 @@ device's idle share, per kernel tier.
         sat+cosine
     PYTHONPATH=src python -m repro_torch.launch.profile --variant ladder
     PYTHONPATH=src python -m repro_torch.launch.profile --train
+    PYTHONPATH=src python -m repro_torch.launch.profile --fleet
+    PYTHONPATH=src python -m repro_torch.launch.profile --sat-logits
+    PYTHONPATH=src python -m repro_torch.launch.profile --peek
 
 Without ``--variant`` it builds the main-path configurations
 (``launch/main_path.py``: the student on the Wikipedia path, then on the
@@ -27,7 +30,22 @@ kernel function, so fused_step's three kernels show apart). ``--train``
 traces training instead: a teacher step and a distill step of the
 student at paper width on ``main_path.train_graph`` (B = 100), each
 warmed up for 10 steps and traced for the next 20, with the same report.
-Needs a CUDA device.
+``--fleet`` traces serving rounds of a multi-tenant session instead: the
+mixed fleet of ``main_path.FLEET`` (8 tenants, 5 cohorts), then one np4
+fused lane of 1, 8 and 16 tenants, each warmed up for 5 rounds, timed
+over 20 rounds without the profiler (the wall time and idle share it
+reports: the profiler's own cost inflates a traced round's wall time
+several-fold at this rate of device operations) and traced over the next
+20; "step" in the report is then a round. ``--sat-logits`` isolates the
+cost of ``attention.sat_logits``'s row-independent form (an elementwise
+product and a sum) against the matrix product it replaced
+(``matmul_sat_logits``) and a slot-by-slot sum (``slot_sum_sat_logits``)
+on the Wikipedia path: each form alone at the path's input (2B x m_r),
+device ops and device us a call (traced) and host us a call; then each
+tier's step traced with each form in turn, twice. ``--peek`` times the engine's
+``step_on_device`` (a step on a copy of the tables) against ``process``
+on the same batches and state, per tier, host clock, synchronized. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -162,6 +180,130 @@ def profile_training(device) -> None:
         report(f"train {name}", prof, wall * 1e3 / STEPS, 0)
 
 
+def profile_fleet(device) -> None:
+    """Rounds of the mixed fleet and of one np4 fused lane at T = 1, 8,
+    16: the wall time of a round (host clock around it, synchronized) from
+    an untraced window, the device's side from a traced one."""
+    g = main_path.wikipedia_graph()
+    fleets = {"mixed": main_path.FLEET}
+    for T in (1, 8, 16):
+        fleets[f"np4 fused x{T}"] = ((main_path.STUDENT, "fused", None),) * T
+    for name, lanes in fleets.items():
+        mgr, tids = main_path.fleet_session(g, device, lanes)
+        warm = 5
+        feeds = main_path.fleet_feeds(g, len(tids), warm + 2 * STEPS)
+
+        def round_(r):
+            t0 = time.perf_counter()
+            mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        for r in range(warm):
+            round_(r)
+        wall = sum(round_(r) for r in range(warm, warm + STEPS))
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = sum(round_(r) for r in range(warm + STEPS,
+                                                  warm + 2 * STEPS))
+        print(f"profile fleet {name}: traced wall {traced * 1e3 / STEPS:.3f}"
+              f" ms/round, untraced {wall * 1e3 / STEPS:.3f}", flush=True)
+        report(f"fleet {name} ({len(tids)} tenants, "
+               f"{len(mgr.describe())} cohorts)", prof, wall * 1e3 / STEPS,
+               sum(ops.launch_counts().values()) / STEPS)
+        del mgr
+        torch.cuda.empty_cache()
+
+
+def matmul_sat_logits(params: dict, dt_nbr: torch.Tensor) -> torch.Tensor:
+    """``attention.sat_logits`` as one matrix product (its rows may depend
+    on the row count: cuBLAS picks its algorithm by the shape)."""
+    return params["a"] + torch.log1p(dt_nbr.clamp(min=0.0)) @ params["w_t"].T
+
+
+def slot_sum_sat_logits(params: dict, dt_nbr: torch.Tensor) -> torch.Tensor:
+    """``attention.sat_logits`` summed slot by slot: m_r elementwise
+    operations."""
+    dtf = torch.log1p(dt_nbr.clamp(min=0.0))
+    w_t = params["w_t"]
+    acc = dtf[..., :1] * w_t[:, 0]
+    for k in range(1, w_t.shape[1]):
+        acc = torch.addcmul(acc, dtf[..., k:k + 1], w_t[:, k])
+    return params["a"] + acc
+
+
+def profile_sat_logits(device) -> None:
+    """The forms of sat_logits alone, then in every tier's step."""
+    from repro_torch.core import attention
+    shipped = attention.sat_logits
+    forms = {"mul+sum": shipped, "matmul": matmul_sat_logits,
+             "slot sum": slot_sum_sat_logits}
+    g, cfg, params = main_path.build(device)
+    dt = torch.rand((2 * main_path.B, cfg.m_r), generator=torch.Generator(
+        device=device).manual_seed(0), device=device) * 1e5
+    for name, fn in forms.items():
+        for _ in range(WARMUP):
+            fn(params["attn"], dt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEPS):
+                fn(params["attn"], dt)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.time_range.elapsed_us() for e in events) / STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(params["attn"], dt)
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) * 1e6 / 200
+        print(f"sat_logits {name} at {tuple(dt.shape)}: "
+              f"{len(events) / STEPS:g} device ops a call, device "
+              f"{dev_us:.2f} us a call, {host_us:.2f} us a call issued "
+              "back to back", flush=True)
+    try:
+        for tier in KERNEL_TIERS:
+            for name in tuple(forms) * 2:
+                attention.sat_logits = forms[name]
+                profile_tier(f"wikipedia sat_logits={name}", tier, cfg,
+                             params, g, device)
+    finally:
+        attention.sat_logits = shipped
+
+
+def profile_peek(device) -> None:
+    """``step_on_device`` against ``process`` on the same batches."""
+    g, cfg, params = main_path.build(device)
+    B = main_path.B
+    batches = list(stream.fixed_count(
+        g, B, window=slice(0, (WARMUP + STEPS) * B)))
+    for tier in KERNEL_TIERS:
+        eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier),
+                              params, g.edge_feats, g.node_feats,
+                              device=device)
+        for b in batches[:WARMUP]:
+            eng.process(b)
+        peek_s, proc_s = [], []
+        for b in batches[WARMUP:]:
+            dev = tuple(torch.as_tensor(x, device=device) for x in
+                        (b.src, b.dst, b.eid, b.ts, b.valid))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step_on_device(dev)
+            torch.cuda.synchronize()
+            peek_s.append(time.perf_counter() - t0)
+            eng.process(b)
+            proc_s.append(eng.metrics[-1]["latency_s"])
+        table_mb = sum(t.numel() * t.element_size()
+                       for t in eng.session.cohort_of(eng.tid).state) / 1e6
+        peek_ms = sorted(peek_s)[STEPS // 2] * 1e3
+        proc_ms = sorted(proc_s)[STEPS // 2] * 1e3
+        print(f"peek {tier}: step_on_device median {peek_ms:.3f} ms, "
+              f"process median {proc_ms:.3f} ms "
+              f"({peek_ms - proc_ms:+.3f} ms; the copy is of "
+              f"{table_mb:.2f} MB of tables)", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", nargs="+", default=None,
@@ -170,10 +312,26 @@ def main(argv=None):
                          "main_path.LADDER")
     ap.add_argument("--train", action="store_true",
                     help="trace training steps (teacher, distill) instead")
+    ap.add_argument("--fleet", action="store_true",
+                    help="trace multi-tenant serving rounds instead")
+    ap.add_argument("--sat-logits", action="store_true",
+                    help="isolate sat_logits' forms (product and sum, "
+                         "matmul, slot sum)")
+    ap.add_argument("--peek", action="store_true",
+                    help="time step_on_device against process")
     args = ap.parse_args(argv)
     device = resolve_device()
+    if args.sat_logits or args.peek:
+        if args.sat_logits:
+            profile_sat_logits(device)
+        if args.peek:
+            profile_peek(device)
+        return
     if args.train:
         profile_training(device)
+        return
+    if args.fleet:
+        profile_fleet(device)
         return
     if args.variant is None:
         for path, build, tiers in (

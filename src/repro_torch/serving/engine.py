@@ -10,9 +10,11 @@ Port of ``repro.serving.engine``: a stateful single-stream session over a
                    (ref | staged | fused)
   Updater       -> last-write-wins chronological commit
 
-The reference engine is a one-tenant view of its multi-tenant session;
-this one steps its pipeline directly. The engine runs on ``cuda`` unless
-it is given ``device="cpu"``.
+The engine is a one-tenant view of the multi-tenant session
+(``serving/session.py``), as the reference's is: one tenant in a
+one-slot cohort, stepped through the same ``batched_step`` as a fleet, so
+a stream served alone and the same stream in a fleet give equal results.
+The engine runs on ``cuda`` unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ import torch
 
 from repro_torch.utils import FrozenConfig, resolve_device
 from repro_torch.core import pipeline as pl
-from repro_torch.core import tgn
+from repro_torch.core import stages, tgn
 from repro_torch.data.stream import EdgeBatch
 from repro_torch.distributed import overlap
 from repro_torch.obs import Histogram
+from repro_torch.serving.session import SessionManager
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +44,6 @@ class EngineConfig(FrozenConfig):
     prefetch: int = 2
 
 
-def _to_tensors(tree, device):
-    """Parameters as tensors on ``device`` (numpy leaves are converted)."""
-    if isinstance(tree, dict):
-        return {k: _to_tensors(v, device) for k, v in tree.items()}
-    return torch.as_tensor(tree, device=device)
-
-
 class StreamingEngine:
     """Stateful streaming inference over a chronological edge stream."""
 
@@ -55,33 +51,36 @@ class StreamingEngine:
                  node_feats=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.pipeline = pl.TGNPipeline(cfg.model, cfg.use_kernels,
-                                       device=self.device)
-        self.params = _to_tensors(params, self.device)
-        self.edge_feats = torch.as_tensor(
-            edge_feats, dtype=torch.float32, device=self.device).contiguous()
-        if (self.edge_feats.ndim != 2
-                or self.edge_feats.shape[1] != cfg.model.f_edge):
-            raise ValueError(f"edge_feats must be (n, {cfg.model.f_edge}), "
-                             f"got {tuple(self.edge_feats.shape)}")
-        # static node features, (n_nodes, f_feat) when the model has them
-        want = (cfg.model.n_nodes, cfg.model.f_feat)
-        self.node_feats = None
-        if node_feats is not None or cfg.model.f_feat > 0:
-            if node_feats is None:
-                raise ValueError(f"node_feats must be {want}, got None")
-            self.node_feats = torch.as_tensor(
-                node_feats, dtype=torch.float32,
-                device=self.device).contiguous()
-            if tuple(self.node_feats.shape) != want:
-                raise ValueError(f"node_feats must be {want}, got "
-                                 f"{tuple(self.node_feats.shape)}")
+        # a one-tenant session: the same cohort step as a fleet
+        self.session = SessionManager(params, edge_feats, node_feats,
+                                      model=cfg.model,
+                                      use_kernels=cfg.use_kernels,
+                                      device=self.device)
+        self.tid = self.session.add_tenant()
+        cohort = self.session.cohort_of(self.tid)
+        self.pipeline = cohort.pipeline
+        self.params = cohort.params
+        self.edge_feats = self.session.edge_feats
+        self.node_feats = self.session.node_feats
         # folded LUT tables and kernel packs, prepared once per session
-        self.aux = self.pipeline.prepare(self.params)
-        self.state = self.pipeline.init_state()
+        self.aux = cohort.aux
         self.metrics: list[dict] = []
+        self._state = None           # the last state read or set
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+
+    @property
+    def state(self):
+        """The tenant's VertexState: a copy, taken after the last step (the
+        same object until the next step or assignment)."""
+        if self._state is None:
+            self._state = self.session.state_of(self.tid)
+        return self._state
+
+    @state.setter
+    def state(self, st):
+        self.session.set_state(self.tid, st)
+        self._state = st
 
     @classmethod
     def from_variant(cls, variant: str, params: dict, edge_feats,
@@ -97,14 +96,29 @@ class StreamingEngine:
                    node_feats, device=device)
 
     def describe(self) -> dict:
-        return self.pipeline.describe()
+        """The pipeline's variant, stages and resolved tier, and the tier
+        this engine asked for (its cohort is keyed by the resolved one)."""
+        return {**self.pipeline.describe(),
+                "use_kernels": stages.kernel_tier(self.cfg.use_kernels)}
 
     def step_on_device(self, dev: tuple) -> tgn.BatchOut:
         """One pipeline step over batch tensors already on the device
         ``(src, dst, eid, ts, valid)``, WITHOUT committing state and
-        without recording metrics (a benchmarking hook)."""
-        return self.pipeline.step(self.params, self.aux, self.state, dev,
-                                  self.edge_feats, self.node_feats)
+        without recording metrics (a benchmarking hook). It runs the
+        program ``process`` runs, on a copy of the tenant's tables
+        (``SessionManager.peek``), so its time is ``process``'s plus one
+        device copy of the tables (as the reference's jitted step, whose
+        state is not donated, writes whole new tables)."""
+        return self.session.peek(self.tid, dev)
+
+    def embed(self, vids: torch.Tensor, t_query: torch.Tensor):
+        """``pipeline.embed`` of vertex instances ``vids`` at ``t_query``
+        on the tenant's current state (no state update): ``(h, logits,
+        full_valid, full_dt)``."""
+        cohort = self.session.cohort_of(self.tid)
+        return self.pipeline.embed(self.params, self.aux, cohort.view(0),
+                                   self.edge_feats, self.node_feats, vids,
+                                   t_query)
 
     def _to_device(self, batch: EdgeBatch) -> overlap.DeviceBatch:
         """Check the batch's ids against the tables, then issue its copy."""
@@ -130,11 +144,10 @@ class StreamingEngine:
         overlap.join(batch)
         h2d = batch.enq_s + (time.perf_counter() - t0)
         t1 = time.perf_counter()
-        out = self.pipeline.step(self.params, self.aux, self.state,
-                                 batch.dev, self.edge_feats, self.node_feats)
+        out = self.session.step({self.tid: batch.dev})[self.tid]
         self._sync()
         dt = time.perf_counter() - t1
-        self.state = out.state
+        self._state = None
         n = int(np.asarray(batch.host.valid).sum())
         self.metrics.append({"latency_s": dt, "edges": n, "h2d_s": h2d,
                              "throughput_eps": n / dt if dt > 0 else 0.0})
