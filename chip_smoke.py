@@ -89,8 +89,27 @@ without them, and on any failed check. In order it:
     T = 1, 2, 4, 8, 16 tenants: ms a round, edges/s) and the four kernels
     at 8 x 400 rows against their plain versions, timed beside their
     bounds;
-12. prints each run's latency/throughput summary;
-13. prints one ``{"kernels": [...]}`` line and, last,
+12. the serving-stack phase (``launch/serve_smoke.py``,
+    ``chaos_smoke.py``, ``journal_smoke.py``), on the Wikipedia-sized
+    graph at paper width with B = 200 rows a flush (``pad_quantum`` = B),
+    on a fake clock: the serve leg (3 tenants on np4 fused and np4 staged
+    behind ``ServingFrontend``, every edge an NDJSON request through
+    ``handle``, a 4th tenant attached and detached mid-stream; the layout
+    frozen after the warm-up, one call a round, no event rejected, spans
+    on 1-in-8 sampled rounds only, SLO burn for every tenant; round ms and
+    edges/s); the chaos leg (``FleetGuard`` with a ``nan_state``, a failed
+    snapshot write, a ``kernel_fail`` on the fused cohort and a ``stall``:
+    each fired and detected once, degradations equal to the kernel faults,
+    the degraded cohort on the staged kernels from then on, its state and
+    the survivor's equal to solo replays bit for bit); the journal leg
+    (killed mid-stream, recovered by snapshot and journal replay bit for
+    bit, equal to an uninterrupted twin, a duplicate fuzz acked ``dedup``);
+    the guard's cost a round (bare, guarded at ``check_every = 1``, the
+    whole stack); every kernel's launches in the phase checked against
+    the tiers' counts;
+13. prints each run's latency/throughput summary;
+14. prints one ``{"kernels": [...]}`` line (with ``serving_launches``,
+    each kernel's launches in the serving-stack phase) and, last,
     ``{"ok": true, "device": {...}}``.
 
 The serving phases' weights are random, drawn from a seeded
@@ -752,18 +771,6 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def lane_kernels(desc) -> tuple:
-    """The port kernels a cohort's step launches, from its stage names."""
-    if "fused_step" in desc:
-        return ("fused_step",)
-    names = ()
-    if desc.get("memory_updater") == "gru:lut-cuda":
-        names += ("lut_encode", "gru_cell")
-    if desc["aggregator"] == "attn:sat-lut-cuda":
-        names += ("sat_aggregate",)
-    return names
-
-
 def name_row_dependent_products(dev, params, trees, rows) -> None:
     """Run when a fleet tenant on the port's kernels is not bitwise equal
     to its solo run, to name the op at fault: whether each torch product
@@ -812,6 +819,7 @@ def hold_to_solo(name, mgr, tids, feeds, outs, g, dev) -> tuple:
     summed mean batch ms and the tenants on the port's kernels that are
     not bitwise equal to their solo runs (the ref stages' cuBLAS products
     need not be)."""
+    from repro_torch.launch.main_path import lane_kernels
     from repro_torch.serving.engine import EngineConfig, StreamingEngine
     solo_ms, unequal = 0.0, []
     for i, tid in enumerate(tids):
@@ -865,8 +873,8 @@ def run_fleet(ops, mp, g, dev) -> dict:
     for key, c in desc.items():
         print(f"fleet cohort {key}: tenants {c['tenants']}, tier "
               f"{c['tier']}, lane {c['lane']}, params {c['param_set']}, "
-              f"kernels {lane_kernels(c)}", flush=True)
-    want = {n: R * sum(n in lane_kernels(c) for c in desc.values())
+              f"kernels {mp.lane_kernels(c)}", flush=True)
+    want = {n: R * sum(n in mp.lane_kernels(c) for c in desc.values())
             for n in ops.LAUNCHES}
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -977,6 +985,45 @@ def check_fleet_kernels(ops, mp, dev, solo) -> dict:
         rows[name] = dict(fleet_rows=T * 2 * mp.B, fleet_ms=ms,
                           fleet_bound_ms=b_ms, fleet_max_abs_err=err)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the online serving stack: front end, journal, fault plan, guard
+# ---------------------------------------------------------------------------
+
+
+def run_serving_stack(ops, mp, g, dev, card) -> dict:
+    """The serve, chaos and journal legs at paper width, B = ``mp.B`` rows
+    a flush, and the guard's cost; each leg resets the launch counts just
+    before it drives its rounds and reads them just after. Returns each
+    kernel's launches over the three legs."""
+    from repro_torch.launch import chaos_smoke, journal_smoke, serve_smoke
+    cfg, params = mp.model(g, mp.STUDENT, dev)
+    t0 = time.perf_counter()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    for name, leg in (("serve", serve_smoke), ("chaos", chaos_smoke),
+                      ("journal", journal_smoke)):
+        res = leg.run(g, cfg, params, dev, mp.B)
+        check(res["ok"], f"serving stack {name} leg: "
+              f"{[k for k, v in res['checks'].items() if not v]} failed")
+        check(res["launches"] == res["want_launches"],
+              f"serving stack {name} leg launches {res['launches']}, want "
+              f"{res['want_launches']}")
+        for n, k in res["launches"].items():
+            total[n] += k
+    cost = serve_smoke.guard_cost(g, cfg, params, dev, mp.B)
+    (g_m, g_lo, g_hi), (s_m, s_lo, s_hi) = cost["guard_diff"], cost["stack_diff"]
+    print(f"serving stack: guard cost on {card}: bare {cost['bare']:.3f} "
+          f"ms a round; guarded {g_m:+.3f} ms [{g_lo:+.3f}, {g_hi:+.3f}], "
+          f"whole stack {s_m:+.3f} ms [{s_lo:+.3f}, {s_hi:+.3f}] (median "
+          f"paired difference [95%], {cost['blocks']} blocks of "
+          f"{cost['rounds']} rounds), journal {cost['journal_ms']:.3f} ms "
+          f"a round", flush=True)
+    print(f"serving stack: kernel launches in the phase {total} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(k > 0 for k in total.values()),
+          f"serving stack: every kernel launched ({total})")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1293,6 +1340,7 @@ def main() -> int:
     fleet_rows = check_fleet_kernels(ops, mp, dev, kernels)
     for name, row in fleet_rows.items():
         row["fleet_launches"] = counts[name]
+    serving = run_serving_stack(ops, mp, g, dev, card)
 
     rows = []
     for name, k in kernels.items():
@@ -1305,7 +1353,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
-                     "call_ms": k["call_ms"], **fleet_rows[name]})
+                     "call_ms": k["call_ms"], **fleet_rows[name],
+                     "serving_launches": serving[name]})
     print("card:", card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ edges, whose chronological train window is ``TRAIN_STEPS`` batches of
 distills the student.
 
 ``fleet_session``: a multi-tenant session on the Wikipedia path (``FLEET``:
-eight tenants on five lanes, the teacher on its own parameter set), and
-``fleet_feeds``: each tenant's own contiguous window of the stream.
+eight tenants on five lanes, the teacher on its own parameter set),
+``fleet_feeds``: each tenant's own contiguous window of the stream, and
+``lane_kernels``: the port kernels a cohort's step launches.
 """
 from __future__ import annotations
 
@@ -126,6 +127,20 @@ def fleet_session(g, device, lanes=FLEET, coalesce: bool = True):
     tids = [mgr.add_tenant(v, use_kernels=tier, params=pset, name=f"t{i}")
             for i, (v, tier, pset) in enumerate(lanes)]
     return mgr, tids
+
+
+def lane_kernels(desc) -> tuple:
+    """The port kernels a cohort's step launches, from its pipeline's
+    ``describe()``: ``fused_step`` on the fused tier, else the staged
+    kernels of its LUT and SAT stages (none for the cosine stages)."""
+    if "fused_step" in desc:
+        return ("fused_step",)
+    names = ()
+    if desc.get("memory_updater") == "gru:lut-cuda":
+        names += ("lut_encode", "gru_cell")
+    if desc["aggregator"] == "attn:sat-lut-cuda":
+        names += ("sat_aggregate",)
+    return names
 
 
 def fleet_feeds(g, n_tenants: int, rounds: int) -> list:

@@ -1,5 +1,22 @@
-"""Metrics for the port's serving summaries: a copy of the reference's
-``repro.obs.metrics`` (counters, gauges, log-bucketed histograms)."""
-from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
+"""Fleet observability of the port: metrics registry, round tracer, SLO
+accounting. Copies of the reference's ``repro.obs`` modules:
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+``metrics``
+    typed counters, gauges and streaming log-bucketed histograms behind
+    one ``MetricsRegistry`` per fleet.
+
+``trace``
+    span-based round tracing on an injected clock, Chrome/Perfetto
+    ``trace_event`` and JSON-lines export; sampled, so only a sampled
+    round fences the device.
+
+``slo``
+    per-tenant latency-objective tracking: observed p99 against a target
+    and the error budget's burn rate.
+"""
+from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
+from repro_torch.obs.slo import SLOTracker
+from repro_torch.obs.trace import RoundTracer, Span
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "RoundTracer", "SLOTracker", "Span"]

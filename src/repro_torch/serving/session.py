@@ -29,6 +29,15 @@ view of this class.
 
 Steps do not block on the device; ``sync()`` (and ``summary()``) drain
 the fleet. A session runs on ``cuda`` unless it is given ``device="cpu"``.
+
+Hooks of the online serving stack (``serving/frontend.py``, ``guard.py``,
+``faults.py``, ``obs/``): ``set_tracer`` (a sampled ``RoundTracer``: only
+a sampled round records spans and fences the device, with a CUDA event
+and its synchronize), ``set_slo`` (per-tenant SLO burn), ``set_faults``
+(a deterministic fault plan; unarmed, one attribute test a round),
+``quarantine`` (a tenant's batches are dropped and its slot runs idle,
+which leaves its rows and its cohort-mates' unchanged) and
+``guarded_step`` (the round through an attached ``FleetGuard``).
 """
 from __future__ import annotations
 
@@ -83,12 +92,21 @@ def _as_host_tuple(batch) -> tuple:
     return src, dst, eid, ts, valid
 
 
-class _Done:
-    """The reuse gate of a staging set on the CPU, where every copy and
-    launch has finished when its call returns."""
+def _mark(device):
+    """A CUDA event recorded now on ``device``'s current stream, or None
+    on the CPU, where every launch has finished when its call returns."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
-    def synchronize(self) -> None:
-        pass
+
+def _fence(mark) -> None:
+    """Wait until the work before ``mark`` has run: the round's only wait
+    on the device, made on trace-sampled rounds only."""
+    if mark is not None:
+        mark.synchronize()
 
 
 class _HostStager:
@@ -118,11 +136,8 @@ class _HostStager:
         self._alloc()
 
     def _event(self):
-        if self.device.type != "cuda":
-            return _Done()
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
+        """An event recorded now: a set's reuse gate (None on the CPU)."""
+        return _mark(self.device)
 
     def _alloc(self) -> None:
         pin = self.device.type == "cuda"
@@ -321,6 +336,11 @@ class _Cohort:
     def size(self) -> int:
         return len(self.tids)
 
+    @property
+    def spare(self) -> int:
+        """Idle slots beyond the tenants present."""
+        return self.capacity - self.size
+
     def view(self, i: int) -> mailbox.VertexState:
         """Slot ``i``'s (V, ...) rows of the stacked tables (views)."""
         return mailbox.tenant_view(self.state, i, self.cfg.n_nodes)
@@ -470,7 +490,71 @@ class SessionManager:
         #: the fleet's metrics registry: round counters and the layout
         #: gauges (``compile_counters``)
         self.obs = obs if obs is not None else MetricsRegistry()
-        self._obs_rounds = 0     # round walls already fed to the registry
+        self._obs_rounds = 0     # round walls already fed to registry/SLO
+        #: ``() -> {tid: queued rows}`` of a serving front end, or None
+        self.queue_depths = None
+        #: sampled round tracer (``obs.RoundTracer``) or None
+        self.tracer = None
+        #: per-tenant SLO burn tracker (``obs.SLOTracker``) or None
+        self.slo = None
+        #: armed fault plan (``faults.FaultInjector``) or None
+        self._faults = None
+        #: supervising ``guard.FleetGuard`` (set by its constructor) or None
+        self.guard = None
+        #: tenants whose batches are dropped and whose slots run idle
+        self._quarantined: set[str] = set()
+
+    # -- observability and fault hooks -----------------------------------
+    def set_tracer(self, tracer) -> None:
+        """Attach a sampled round tracer (``obs.RoundTracer``); ``None``
+        detaches. Spans and the device fences happen on sampled rounds
+        only; every other round issues no synchronize."""
+        self.tracer = tracer
+
+    def set_slo(self, target_ms: float, objective: float = 0.99,
+                source: str = "round"):
+        """Arm per-tenant SLO burn accounting (``obs.SLOTracker``), shown
+        in ``tenant_stats()[tid]["slo"]``. ``source``: ``"round"`` (round
+        walls, fed by ``summary()``) or ``"event"`` (a front end's
+        per-event latencies)."""
+        from repro_torch.obs import SLOTracker
+        self.slo = SLOTracker(target_ms, objective=objective, source=source)
+        return self.slo
+
+    def set_faults(self, injector) -> None:
+        """Arm (``None``: disarm) a deterministic fault plan
+        (``faults.FaultInjector``), for chaos runs only."""
+        self._faults = injector
+
+    # -- quarantine (the guard's isolation primitive) ------------------
+    def quarantine(self, tid: str) -> None:
+        """Stop serving ``tid`` without detaching it: its batches are
+        dropped from every round, so its slot runs all-``valid=False``
+        rows (no change to its state or its cohort-mates'), with no
+        relayout."""
+        if tid not in self._tenant_cohort:
+            raise KeyError(f"unknown tenant {tid!r}")
+        self._quarantined.add(tid)
+        self.obs.gauge("guard.quarantined_now").set(len(self._quarantined))
+
+    def unquarantine(self, tid: str) -> None:
+        self._quarantined.discard(tid)
+        self.obs.gauge("guard.quarantined_now").set(len(self._quarantined))
+
+    def is_quarantined(self, tid: str) -> bool:
+        return tid in self._quarantined
+
+    @property
+    def quarantined(self) -> frozenset:
+        return frozenset(self._quarantined)
+
+    def guarded_step(self, batches: Mapping) -> dict:
+        """``step`` through the attached ``FleetGuard`` (health checks,
+        quarantine, restores, tier degradation), else ``step``. ``run``
+        and the front end's pump call this."""
+        if self.guard is not None:
+            return self.guard.step(batches)
+        return self.step(batches)
 
     def _invalidate_layout(self) -> None:
         """The fleet's layout changed: the next round builds a new one."""
@@ -590,6 +674,8 @@ class SessionManager:
         self.sync()
         self._tenant_cohort.pop(tid)
         self._tenant_stats.pop(tid, None)
+        if tid in self._quarantined:
+            self.unquarantine(tid)
         relayout = cohort.remove(tid)
         if not cohort.tids and cohort.reserve is None:
             self._cohorts.pop((cohort.cfg, cohort.tier, cohort.param_set))
@@ -697,10 +783,16 @@ class SessionManager:
         self._stager.ensure_width(width)
         return self._coalesced
 
-    def _coalesced_round(self, batches: Mapping) -> tuple[dict, object]:
+    def _coalesced_round(self, batches: Mapping,
+                         trace=None) -> tuple[dict, object]:
         """Stage every submitted batch into the super-batch (one copy),
         issue every cohort's step in one call, and commit in place.
-        Returns ``(outs, pending edge count)``."""
+        Returns ``(outs, pending edge count)``.
+
+        ``trace`` is the tracer on a sampled round, else None: then the
+        ``stage`` and ``launch`` host spans are recorded and the ``h2d``
+        span waits for the super-batch's copy (an event recorded after
+        it). Every fence is inside the ``trace`` gate."""
         host = {tid: _as_host_tuple(b) for tid, b in batches.items()}
         width = max(h[0].shape[0] for h in host.values())
         launch = self._ensure_layout(width)
@@ -714,7 +806,14 @@ class SessionManager:
             c = self._tenant_cohort[tid]
             rows[offsets[id(c)] + c.tids.index(tid)] = h
             widths[id(c)] = max(widths.get(id(c), 1), h[0].shape[0])
+        if trace is not None:
+            t_stage = trace.clock()
         superbatch = self._stager.stage(rows)
+        if trace is not None:
+            copied = _mark(self.device)
+            t_launch = trace.clock()
+            trace.add("stage", t_stage, t_launch, cat="host",
+                      rows=len(rows), width=width)
         # each segment steps at its cohort's widest batch (an idle cohort
         # runs a width-1 masked row), the width its own launch would take
         outs_t, edges = launch(tuple(c.params for c in cohorts),
@@ -723,6 +822,12 @@ class SessionManager:
                                widths=tuple(widths.get(id(c), 1)
                                             for c in cohorts))
         self._stager.note_consumer()
+        if trace is not None:
+            trace.add("launch", t_launch, trace.clock(), cat="host",
+                      lanes=len(cohorts))
+            _fence(copied)
+            trace.add("h2d", t_stage, trace.clock(), cat="device",
+                      rows=len(rows))
         outs: dict[str, tgn.BatchOut] = {}
         for c, out in zip(cohorts, outs_t):
             c.state = out.state
@@ -776,11 +881,22 @@ class SessionManager:
         if unknown:
             raise KeyError(f"unknown tenants {sorted(unknown)}; "
                            f"registered: {sorted(self._tenant_cohort)}")
+        if self._faults is not None:
+            batches = self._faults.on_round(self, batches)
+        if self._quarantined:
+            # dropped: the slot runs idle rows, its state unchanged
+            batches = {t: b for t, b in batches.items()
+                       if t not in self._quarantined}
+        trace = None
+        if self.tracer is not None and batches:
+            trace = self.tracer if self.tracer.sample_round() else None
         t0 = time.perf_counter()
+        if self._faults is not None:
+            self._faults.before_launch(self)     # may raise KernelFault
         if not batches:
             outs, edges, launches = {}, 0, 0
         elif self.coalesce and not self._device_staged(batches):
-            outs, edges = self._coalesced_round(batches)
+            outs, edges = self._coalesced_round(batches, trace=trace)
             launches = 1
         else:
             outs, edges, launches = self._percohort_round(batches)
@@ -797,6 +913,12 @@ class SessionManager:
             ts["rounds"] += 1
             ts["rows"] += int(_fields(b)[0].shape[0])
             ts["last_flush_t"] = t0
+        if trace is not None:
+            # sampled rounds only: wait for this round's commits
+            t_drain = trace.clock()
+            _fence(_mark(self.device))
+            trace.add("drain", t_drain, trace.clock(), cat="device",
+                      round=len(self.metrics) - 1)
         return outs
 
     def sync(self) -> None:
@@ -834,13 +956,24 @@ class SessionManager:
                     del its[tid]
             if not batches:
                 return
-            yield batches, self.step(batches)
+            yield batches, self.guarded_step(batches)
 
     def tenant_stats(self) -> dict:
-        """``{tid: {rounds, rows, last_flush_t}}``: rounds joined, rows
-        submitted (padding included), the host clock of the last round
-        joined."""
-        return {tid: dict(st) for tid, st in self._tenant_stats.items()}
+        """``{tid: {queue_depth, rounds, rows, last_flush_t, quarantined[,
+        slo][, guard]}}``: the front end's queued rows (0 without one),
+        rounds joined, rows submitted (padding included), the host clock
+        of the last round joined, the quarantine flag, and the tenant's
+        SLO burn (every tenant, when ``set_slo`` armed one) and guard
+        record (with a guard)."""
+        qd = dict(self.queue_depths()) if self.queue_depths else {}
+        slo, guard = self.slo, self.guard
+        return {tid: {"queue_depth": int(qd.get(tid, 0)), **st,
+                      "quarantined": tid in self._quarantined,
+                      **({"slo": slo.tenant(tid)} if slo is not None
+                         else {}),
+                      **({"guard": guard.tenant_view(tid)}
+                         if guard is not None else {})}
+                for tid, st in self._tenant_stats.items()}
 
     def summary(self) -> dict:
         """Round metrics over every round after the first, and
@@ -859,8 +992,14 @@ class SessionManager:
         for w in walls:
             wall_h.record(w)
         reg_h = self.obs.histogram("session.round_wall_s")
+        slo = self.slo if (self.slo is not None
+                           and self.slo.source == "round") else None
         for i in range(self._obs_rounds, len(walls)):
             reg_h.record(walls[i])
+            if slo is not None:
+                for tid in self.metrics[i + 1].get("tids", ()):
+                    if tid in self._tenant_cohort:
+                        slo.observe(tid, float(walls[i]))
         self._obs_rounds = len(walls)
         edges = sum(int(m["edges"]) for m in self.metrics[1:])
         return {
