@@ -85,10 +85,23 @@ without them, and on any failed check. In order it:
     port's kernels must equal it bit for bit; where one does not, the
     torch products of the path are scanned and the ones whose rows depend
     on the rows beside them are printed. A ref-tier cohort of two is held
-    to its solo runs too. Then the coalescing sweep (one np4 fused lane of
-    T = 1, 2, 4, 8, 16 tenants: ms a round, edges/s) and the four kernels
-    at 8 x 400 rows against their plain versions, timed beside their
-    bounds;
+    to its solo runs too, bit for bit, and a ref cohort of T = 1, 2 and 8
+    is timed, with a staged np4 cohort and a teacher cohort
+    (``time_cohorts``). Then the coalescing sweep (one np4
+    fused lane of T = 1, 2, 4, 8, 16 tenants: ms a round, edges/s) and the
+    four kernels at 8 x 400 rows against their plain versions, timed
+    beside their bounds;
+11b. the fabric phase (``run_fabric``): ``main_path.FABRIC`` (the fleet
+    and a ref cohort of two) served by the ``ShardedSessionManager`` on
+    the meshes tenant=1, tenant=4 and tenant=2,vertex=2 over repeats of
+    the card, coalesced and per-cohort, 10 rounds each, every tenant bit
+    for bit the unsharded session's, each kernel launched once a round
+    per cohort shard; a snapshot taken on tenant=4 restored onto
+    tenant=2,vertex=2 and onto the unsharded session continues bit for
+    bit; the round wall and the bytes the vertex axis copies a round;
+    then each mesh and round kind timed against the unsharded session in
+    24 interleaved pairs of synchronized rounds (the median ratio and its
+    95% interval);
 12. the serving-stack phase (``launch/serve_smoke.py``,
     ``chaos_smoke.py``, ``journal_smoke.py``), on the Wikipedia-sized
     graph at paper width with B = 200 rows a flush (``pad_quantum`` = B),
@@ -108,9 +121,14 @@ without them, and on any failed check. In order it:
     whole stack); every kernel's launches in the phase checked against
     the tiers' counts;
 13. prints each run's latency/throughput summary;
-14. prints one ``{"kernels": [...]}`` line (with ``serving_launches``,
-    each kernel's launches in the serving-stack phase) and, last,
-    ``{"ok": true, "device": {...}}``.
+14. prints one ``{"kernels": [...]}`` line (with ``fabric_launches`` and
+    ``serving_launches``, each kernel's launches in the fabric and
+    serving-stack phases) and, last, ``{"ok": true, "device": {...}}``.
+
+After the engines it prints the paper's §V model's prediction for its
+U200 design point at B = 200 (``core/perf_model.py``) beside the np4
+fused engine's measured batch latency; that line checks nothing. Each
+kernel's bound comes from ``perf_model.roofline`` on ``H100_SXM``.
 
 The serving phases' weights are random, drawn from a seeded
 ``torch.Generator``; the training phase starts from such weights too.
@@ -135,8 +153,6 @@ N_LADDER = 20
 #: winners a row at which the EU kernels are also held and timed: the
 #: ladder's np2, np6 and score-all (k = m_r) rungs
 EU_KS = (2, 6, 10)
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 # 50 chained steps: each tier rounds its own fp32 sums, and the GRU carries
 # the rounding from step to step
@@ -146,6 +162,7 @@ N_SERVE_TRAINED = 20
 #: the tenant counts of the coalescing sweep
 FLEET_TENANTS = 8
 FLEET_SWEEP = (1, 2, 4, 8, 16)
+FABRIC_PAIRS = 24            # paired rounds timing a mesh against one device
 CPU_STEPS = 3                # training steps held to the CPU's
 # the card's and the CPU's losses: fp32 sums in other orders (and atomic
 # scatters in the card's backward), three chained AdamW steps
@@ -219,11 +236,14 @@ def device_ms(fn, reps: int = 20, iters: int = 20) -> float:
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time the card could take: bytes over the memory rate or
-    operations over the fp32 rate, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time the card could take, in ms: bytes over the memory rate
+    or operations over the fp32 rate, whichever is larger
+    (``perf_model.roofline`` on ``perf_model.H100_SXM``)."""
+    from repro_torch.core import perf_model
+    rl = perf_model.roofline(flops, nbytes)
+    if rl.memory_s >= rl.compute_s:
+        return rl.memory_s * 1e3, "bytes"
+    return rl.compute_s * 1e3, "operations"
 
 
 def nbytes(*tensors) -> int:
@@ -772,38 +792,60 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
 
 
 def name_row_dependent_products(dev, params, trees, rows) -> None:
-    """Run when a fleet tenant on the port's kernels is not bitwise equal
-    to its solo run, to name the op at fault: whether each torch product
-    of the serving path gives a tenant's rows, inside a cohort of T
-    tenants, bit for bit what it gives them alone: ``attention.sat_logits``
-    with the student's ``params``, and ``X @ w`` and ``X @ w.T`` for every
-    2-D weight ``w`` of ``trees`` that the step reads (the link head's are
-    not), at T = 2, 3, 8, 16 and ``rows`` rows a tenant. Prints each
-    product's largest difference."""
+    """Run when a fleet tenant is not bitwise equal to its solo run, to
+    name the op at fault: whether each torch product of the serving path
+    gives a tenant's rows, inside a cohort of T tenants, bit for bit what
+    it gives them alone. The products: ``attention.sat_logits`` with the
+    student's ``params``; for every 2-D weight ``w`` of ``trees`` that the
+    step reads (the link head's are not), ``X @ w`` and ``X @ w.T`` in two
+    forms, ``mm`` (one product over the T tenants' stacked rows, against
+    the product of a tenant's rows) and ``bmm`` (one ``torch.bmm`` over
+    the (T, rows, K) view, against the same at T = 1); and the
+    aggregators' einsums over rows. T = 2, 4, 8, 16 at each of ``rows``
+    rows a tenant. Prints each product's largest difference."""
     from repro_torch import tree
     from repro_torch.core import attention
     gen = torch.Generator(device=dev).manual_seed(5)
     m_r = params["attn"]["w_t"].shape[0]
+    H, dh = 2, params["attn"]["w_v"].shape[1] // 2
+
+    def bmm(m):
+        return lambda x, T: torch.bmm(
+            x.reshape(T, -1, x.shape[-1]),
+            m.expand(T, *m.shape)).reshape(-1, m.shape[1])
+
     cases = {"attention.sat_logits": (
-        m_r, lambda x: attention.sat_logits(params["attn"], x.abs() * 1e4))}
+        [(m_r,)], lambda x, T: attention.sat_logits(params["attn"],
+                                                    x.abs() * 1e4)),
+        "einsum bn,bnd->bd": ([(4,), (4, 100)], lambda a, v, T:
+                              torch.einsum("bn,bnd->bd", a, v)),
+        "einsum bhd,bnhd->bhn": ([(H, dh), (m_r, H, dh)], lambda q, k, T:
+                                 torch.einsum("bhd,bnhd->bhn", q, k)),
+        "einsum bhn,bnhd->bhd": ([(H, m_r), (m_r, H, dh)], lambda a, v, T:
+                                 torch.einsum("bhn,bnhd->bhd", a, v))}
     for path, w in (pw for t in trees for pw in tree.flatten_with_path(t)):
         if w.dim() == 2 and not path.startswith("link."):
-            for name, mat in ((path, w), (f"{path}.T", w.T)):
-                cases.setdefault(f"X @ {name} ({mat.shape[0]} -> "
-                                 f"{mat.shape[1]})",
-                                 (mat.shape[0], lambda x, m=mat: x @ m))
-    for name, (K, fn) in cases.items():
+            for name, mat in ((path, w), (f"{path}.T", w.T.contiguous())):
+                shape = f"({mat.shape[0]} -> {mat.shape[1]})"
+                cases.setdefault(f"mm X @ {name} {shape}",
+                                 ([(mat.shape[0],)],
+                                  lambda x, T, m=mat: x @ m))
+                cases.setdefault(f"bmm X @ {name} {shape}",
+                                 ([(mat.shape[0],)], bmm(mat)))
+    Ts = (2, 4, 8, 16)
+    for name, (shapes, fn) in cases.items():
         worst = {}
-        for T in (2, 3, 8, 16):
+        for T in Ts:
             for r in rows:
-                x = torch.randn((T * r, K), generator=gen, device=dev)
-                full = fn(x)
-                d = max(float((full[t * r:(t + 1) * r]
-                               - fn(x[t * r:(t + 1) * r])).abs().max())
-                        for t in range(T))
+                xs = [torch.randn((T * r, *sh), generator=gen, device=dev)
+                      for sh in shapes]
+                full = fn(*xs, T)
+                d = max(float((full[t * r:(t + 1) * r] - fn(
+                    *(x[t * r:(t + 1) * r].clone() for x in xs), 1))
+                    .abs().max()) for t in range(T))
                 if d:
                     worst[(T, r)] = d
-        print(f"fleet product {name}, tenants x rows {[2, 3, 8, 16]} x "
+        print(f"fleet product {name}, tenants x rows {list(Ts)} x "
               f"{list(rows)}: "
               + ("bitwise equal to each tenant's rows alone" if not worst
                  else "differs at " + ", ".join(
@@ -816,10 +858,8 @@ def hold_to_solo(name, mgr, tids, feeds, outs, g, dev) -> tuple:
     ``feeds``, its state now) against a StreamingEngine serving the same
     stream alone: within ``TIER_TOL``, integer tables equal; prints whether
     it is bitwise equal and the largest difference. Returns the engines'
-    summed mean batch ms and the tenants on the port's kernels that are
-    not bitwise equal to their solo runs (the ref stages' cuBLAS products
-    need not be)."""
-    from repro_torch.launch.main_path import lane_kernels
+    summed mean batch ms and the tenants that are not bitwise equal to
+    their solo runs."""
     from repro_torch.serving.engine import EngineConfig, StreamingEngine
     solo_ms, unequal = 0.0, []
     for i, tid in enumerate(tids):
@@ -855,7 +895,7 @@ def hold_to_solo(name, mgr, tids, feeds, outs, g, dev) -> tuple:
               f"diff {diff:.3g} over {len(outs)} rounds and the final state "
               f"(tol {TIER_TOL}); solo mean {mean:.3f} ms a batch",
               flush=True)
-        if not same and lane_kernels(c.pipeline.describe()):
+        if not same:
             unequal.append(tid)
     return solo_ms, unequal
 
@@ -902,22 +942,46 @@ def run_fleet(ops, mp, g, dev) -> dict:
             dev, mgr.params,
             [mgr.param_store.get(n) for n in mgr.param_store.names()],
             (2 * mp.B, 2 * mp.B * mp.M_R))
-    check(not unequal, f"fleet tenants on the port's kernels equal their "
-          f"solo runs bit for bit (not: {unequal}; the fleet product lines "
-          "name the op that differs)")
+    check(not unequal, f"fleet tenants equal their solo runs bit for bit "
+          f"(not: {unequal}; the fleet product lines name the op that "
+          "differs)")
     solo_eps = len(tids) * mp.B / (solo_ms / 1e3)
     print(f"fleet vs solo: fleet round {sm['mean_round_ms']:.3f} ms "
           f"({sm['throughput_eps']:.0f} edges/s) against the {len(tids)} "
           f"solo engines' summed mean batch {solo_ms:.3f} ms "
           f"({solo_eps:.0f} edges/s)", flush=True)
-    # the ref tier, whose products are cuBLAS's: a cohort of two held to
-    # its tenants served alone
+    # the ref tier, whose products run a tenant's rows at a time: a cohort
+    # of two held to its tenants served alone, bit for bit
     pair, ptids = mp.fleet_session(g, dev, lanes=((mp.STUDENT, "ref",
                                                    None),) * 2)
     pouts = [pair.step({t: feeds[i][r] for i, t in enumerate(ptids)})
              for r in range(R)]
-    hold_to_solo("fleet ref pair", pair, ptids, feeds, pouts, g, dev)
+    _, unequal = hold_to_solo("fleet ref pair", pair, ptids, feeds, pouts,
+                              g, dev)
+    check(not unequal, f"the ref cohort of two equals its solo runs bit "
+          f"for bit (not: {unequal})")
     return counts
+
+
+def time_cohorts(mp, g, dev) -> None:
+    """ms a round of a cohort of T = 1, 2 and 8 tenants (the ``summary()``
+    of 20 rounds: the 19 round walls after the first) of the np4 student
+    on the ref and staged tiers and of the teacher on its own weights (its
+    stages are the ref program on every tier); run against another
+    checkout's package to time it before a change."""
+    for lane in ((mp.STUDENT, "ref", None), (mp.STUDENT, "staged", None),
+                 ("vanilla+cosine", "staged", "teacher")):
+        for T in (1, 2, 8):
+            mgr, tids = mp.fleet_session(g, dev, lanes=(lane,) * T)
+            feeds = mp.fleet_feeds(g, T, 20)
+            for r in range(20):
+                mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+            sm = mgr.summary()
+            print(f"cohort {lane[0]} {lane[1]} T = {T}: "
+                  f"{sm['mean_round_ms']:.3f} ms a round (p99 "
+                  f"{sm['p99_round_ms']:.3f}), {sm['throughput_eps']:.0f} "
+                  f"edges/s", flush=True)
+            del mgr
 
 
 def run_fleet_sweep(ops, mp, g, dev) -> None:
@@ -985,6 +1049,178 @@ def check_fleet_kernels(ops, mp, dev, solo) -> dict:
         rows[name] = dict(fleet_rows=T * 2 * mp.B, fleet_ms=ms,
                           fleet_bound_ms=b_ms, fleet_max_abs_err=err)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the sharded tenant fabric
+# ---------------------------------------------------------------------------
+
+
+def _bitwise(name, tids, want, got) -> None:
+    """Two runs of the same tenants, ``(outs a round, final states)``
+    each: every output of every round and every state table equal."""
+    (w_outs, w_st), (g_outs, g_st) = want, got
+    for r, (a, b) in enumerate(zip(w_outs, g_outs)):
+        for tid in tids:
+            for f in ("emb_src", "emb_dst", "attn_logits", "nbr_valid",
+                      "nbr_dt"):
+                check(torch.equal(getattr(a[tid], f), getattr(b[tid], f)),
+                      f"{name}: {tid} round {r} {f} equal to unsharded")
+    for tid in tids:
+        for f, x, y in zip(w_st[tid]._fields, w_st[tid], g_st[tid]):
+            check(torch.equal(x, y), f"{name}: {tid} state {f} equal")
+
+
+def run_fabric(ops, mp, g, dev) -> dict:
+    """The sharded fabric at paper width: ``main_path.FABRIC`` (the fleet
+    and a ref cohort of two; 10 tenants, 6 cohorts, every tier and the
+    teacher on its own weights) over tables of ``FABRIC_V`` vertices, on
+    each mesh of ``FABRIC_MESHES`` over repeats of the card, coalesced and
+    per-cohort, ``FABRIC_ROUNDS`` rounds each. Every tenant's outputs and
+    final state must equal the unsharded session's bit for bit, and each
+    kernel must launch once a round per shard of each cohort of its lane
+    (counts zeroed before a run, read after). A snapshot of every tenant
+    taken mid-run on tenant=4 restores onto tenant=2,vertex=2 and onto the
+    unsharded session, and both continue bit for bit. Prints each run's
+    round wall and the bytes the vertex axis's copies move a round; then
+    times each mesh and round kind against the unsharded session in
+    ``FABRIC_PAIRS`` interleaved pairs of synchronized rounds (the
+    order alternating pair by pair) and prints the median of the pairs'
+    ratios with its 95% interval. Returns each kernel's launches over the
+    counted sharded runs."""
+    from repro_torch.distributed import tgn_sharding as tsh
+    from repro_torch.serving import cluster as cl
+    R, lanes, V = mp.FABRIC_ROUNDS, mp.FABRIC, mp.FABRIC_V
+    half = R // 2
+    feeds = mp.fleet_feeds(g, len(lanes), R)
+    root = os.path.join(ROOT, "build", "chip_smoke_fabric")
+    shutil.rmtree(root, ignore_errors=True)
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+    t_phase = time.perf_counter()
+
+    def drive(mgr, tids, rounds):
+        outs = [mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+                for r in rounds]
+        torch.cuda.synchronize()
+        return outs, {t: mgr.state_of(t) for t in tids}
+
+    def mesh_of(spec):
+        n = int(np.prod(list(tsh.mesh_sizes(spec, 1).values())))
+        return tsh.make_tenant_mesh(spec, devices=[dev] * n)
+
+    base, base_ms = {}, {}
+    for coalesce in (True, False):
+        mgr, tids = mp.fleet_session(g, dev, lanes=lanes, coalesce=coalesce,
+                                     n_nodes=V)
+        base[coalesce] = drive(mgr, tids, range(R))
+        base_ms[coalesce] = mgr.summary()["mean_round_ms"]
+        del mgr
+    _bitwise("fabric unsharded per-cohort vs coalesced", tids, base[True],
+             base[False])
+    for spec in mp.FABRIC_MESHES:
+        for coalesce in (True, False):
+            mesh = mesh_of(spec)
+            mgr, tids = mp.fleet_session(g, dev, lanes=lanes,
+                                         coalesce=coalesce, mesh=mesh,
+                                         n_nodes=V)
+            desc = {k: c for k, c in mgr.describe().items() if k != "mesh"}
+            n_t = mesh.shape.get("tenant", 1)
+            want = {n: R * n_t * sum(n in mp.lane_kernels(c)
+                                     for c in desc.values())
+                    for n in ops.LAUNCHES}
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            got = drive(mgr, tids, range(R))
+            counts = ops.launch_counts()
+            name = f"fabric {spec} {'coalesced' if coalesce else 'per-cohort'}"
+            check(counts == want, f"{name}: launches {counts}, want {want} "
+                  "(each kernel once a round per shard of each cohort of "
+                  "its lane)")
+            _bitwise(name, tids, base[coalesce], got)
+            for n, k in counts.items():
+                total[n] += k
+            sm = mgr.summary()
+            moved = mgr.obs.snapshot(prefix="fabric.").get(
+                "fabric.vertex_exchange_bytes", 0) / R
+            print(f"{name}: {len(tids)} tenants, {len(desc)} cohorts, "
+                  f"{sum(len(c.shards) for c in mgr._cohorts.values())} "
+                  f"shards, capacities "
+                  f"{[c['capacity'] for c in desc.values()]}; bitwise equal "
+                  f"to the unsharded session over {R} rounds and the final "
+                  f"state; round {sm['mean_round_ms']:.3f} ms (p99 "
+                  f"{sm['p99_round_ms']:.3f}; the unsharded "
+                  f"{base_ms[coalesce]:.3f} ms); "
+                  f"vertex axis copies {moved / 1e6:.3f} MB a round; "
+                  f"launches a round { {n: c / R for n, c in counts.items()} }",
+                  flush=True)
+            del mgr
+            torch.cuda.empty_cache()
+    mgr, tids = mp.fleet_session(g, dev, lanes=lanes, n_nodes=V,
+                                 mesh=mesh_of("tenant=4"))
+    drive(mgr, tids, range(half))
+    for t in tids:
+        cl.snapshot_tenant(mgr, t, root, step=half)
+    del mgr
+    teacher = mp.model(g, "vanilla+cosine", dev)[1]
+    for spec in ("tenant=2,vertex=2", None):
+        mgr, _ = mp.fleet_session(g, dev, lanes=(), n_nodes=V,
+                                  mesh=None if spec is None else mesh_of(spec))
+        mgr.register_params("teacher", teacher)
+        tids = [cl.restore_tenant(mgr, root, f"t{i}")
+                for i in range(len(lanes))]
+        got = drive(mgr, tids, range(half, R))
+        name = f"fabric snapshot of tenant=4 restored on {spec or 'one device'}"
+        _bitwise(name, tids, (base[True][0][half:], base[True][1]), got)
+        print(f"{name}: {len(tids)} tenants continue rounds {half}-{R - 1} "
+              f"bitwise equal to the uninterrupted run", flush=True)
+        del mgr
+    shutil.rmtree(root, ignore_errors=True)
+    time_fabric_pairs(mp, g, dev, mesh_of)
+    print(f"fabric: kernel launches over the sharded runs {total} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return total
+
+
+def time_fabric_pairs(mp, g, dev, mesh_of) -> None:
+    """Each mesh of ``FABRIC_MESHES`` against the unsharded session, both
+    serving ``main_path.FABRIC`` over ``FABRIC_V`` vertices: after 2
+    warm-up rounds, ``FABRIC_PAIRS`` pairs of rounds on the same batches,
+    each round synchronized at both ends, the two sessions' order
+    alternating pair by pair. Prints the medians of their walls and the
+    median of the pairs' ratios with its distribution-free 95% interval
+    (``serve_smoke.median_ci``)."""
+    from repro_torch.launch.serve_smoke import median_ci
+    P, warm = FABRIC_PAIRS, 2
+    feeds = mp.fleet_feeds(g, len(mp.FABRIC), warm + P)
+
+    def round_(mgr, tids, r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for spec in mp.FABRIC_MESHES:
+        for coalesce in (True, False):
+            pair = [mp.fleet_session(g, dev, lanes=mp.FABRIC,
+                                     coalesce=coalesce, n_nodes=mp.FABRIC_V,
+                                     mesh=mesh)
+                    for mesh in (None, mesh_of(spec))]
+            walls = ([], [])
+            for r in range(warm + P):
+                for j in ((0, 1) if r % 2 else (1, 0)):
+                    ms = round_(*pair[j], r)
+                    if r >= warm:
+                        walls[j].append(ms)
+            flat, sharded = (np.array(w) for w in walls)
+            med, lo, hi = median_ci(sharded / flat)
+            print(f"fabric {spec} {'coalesced' if coalesce else 'per-cohort'}"
+                  f" paired with the unsharded session over {P} rounds: "
+                  f"median round {np.median(sharded):.3f} ms against "
+                  f"{np.median(flat):.3f} ms; ratio median {med:.3f}x "
+                  f"[{lo:.3f}, {hi:.3f}]", flush=True)
+            del pair
+            torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1332,14 +1568,24 @@ def main() -> int:
               f"{N_BATCHES} steps and the final state (tol {TIER_TOL})",
               flush=True)
     check_embed(ops, tgn, stream, engines, g, mp.B)
+    from repro_torch.core import perf_model
+    fpga = perf_model.predict(perf_model.U200, mp.B)
+    print(f"perf model: the paper's U200 design point (Eqs. 18-22) predicts "
+          f"{fpga['latency_s'] * 1e3:.4f} ms a batch of B = {mp.B} (period "
+          f"{fpga['t_p_s'] * 1e6:.3f} us, {fpga['throughput_eps']:.0f} "
+          f"edges/s, compute-bound {fpga['compute_bound']}); the np4 fused "
+          f"engine here: {engines['fused'].summary()['mean_latency_ms']:.4f} "
+          f"ms mean a batch on {card}", flush=True)
     run_gdelt(ops, mp, dev)
     run_ladder(ops, mp, cx, g, dev)
     run_training(ops, mp, g, dev)
     counts = run_fleet(ops, mp, g, dev)
+    time_cohorts(mp, g, dev)
     run_fleet_sweep(ops, mp, g, dev)
     fleet_rows = check_fleet_kernels(ops, mp, dev, kernels)
     for name, row in fleet_rows.items():
         row["fleet_launches"] = counts[name]
+    fabric = run_fabric(ops, mp, g, dev)
     serving = run_serving_stack(ops, mp, g, dev, card)
 
     rows = []
@@ -1354,6 +1600,7 @@ def main() -> int:
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"],
                      "call_ms": k["call_ms"], **fleet_rows[name],
+                     "fabric_launches": fabric[name],
                      "serving_launches": serving[name]})
     print("card:", card)
     print(json.dumps({"kernels": rows}))

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from repro_torch.utils import FrozenConfig
+from repro_torch.utils import FrozenConfig, per_tenant, tenant_matmul
 from repro_torch.core import pruning, time_encode as te
 from repro_torch.core.memory import dense_init
 
@@ -58,11 +58,13 @@ def init_feat_proj(generator: torch.Generator, cfg: AttnConfig,
     return p
 
 
-def feat_proj(params: dict, s: torch.Tensor,
-              f: torch.Tensor | None) -> torch.Tensor:
-    """f'_i = s_i + W_s f_i + b_s   (Eq. 11; identity when f_feat == 0)."""
+def feat_proj(params: dict, s: torch.Tensor, f: torch.Tensor | None,
+              tenants: int = 1) -> torch.Tensor:
+    """f'_i = s_i + W_s f_i + b_s   (Eq. 11; identity when f_feat == 0).
+    The product runs each of ``tenants`` blocks of rows on its own
+    (``utils.tenant_matmul``)."""
     if "w_s" in params and f is not None:
-        return s + f @ params["w_s"] + params["b_s"]
+        return s + tenant_matmul(f, params["w_s"], tenants) + params["b_s"]
     return s
 
 
@@ -85,24 +87,32 @@ def init_vanilla(generator: torch.Generator, cfg: AttnConfig,
 def vanilla_attention(params: dict, cfg: AttnConfig, time_params: dict,
                       s_self: torch.Tensor, f_self: torch.Tensor | None,
                       s_nbr: torch.Tensor, e_nbr: torch.Tensor,
-                      dt_nbr: torch.Tensor, valid: torch.Tensor):
+                      dt_nbr: torch.Tensor, valid: torch.Tensor,
+                      tenants: int = 1):
     """Teacher aggregator. s_self (B, f_mem); s_nbr (B, m_r, f_mem); e_nbr
     (B, m_r, f_edge); dt_nbr, valid (B, m_r). Returns (h (B, f_emb),
-    logits (B, m_r): the head-mean pre-softmax scores, for distillation)."""
+    logits (B, m_r): the head-mean pre-softmax scores, for distillation).
+    The products and einsums run each of ``tenants`` blocks of rows on
+    its own (``utils.per_tenant``)."""
     B, m_r = dt_nbr.shape
     H = cfg.n_heads
-    fp = feat_proj(params["feat"], s_self, f_self)
+    fp = feat_proj(params["feat"], s_self, f_self, tenants)
     phi0 = te.cosine_encode(time_params, dt_nbr.new_zeros((B,)))
-    q = (torch.cat([fp, phi0], dim=-1) @ params["w_q"]
+    q = (tenant_matmul(torch.cat([fp, phi0], dim=-1), params["w_q"], tenants)
          + params["b_q"]).reshape(B, H, -1)
     kv_in = torch.cat([s_nbr, e_nbr, te.cosine_encode(time_params, dt_nbr)],
                       dim=-1)
-    k = (kv_in @ params["w_k"] + params["b_k"]).reshape(B, m_r, H, -1)
-    v = (kv_in @ params["w_v"] + params["b_v"]).reshape(B, m_r, H, -1)
-    scores = torch.einsum("bhd,bnhd->bhn", q, k) / math.sqrt(q.shape[-1])
+    k = (tenant_matmul(kv_in, params["w_k"], tenants)
+         + params["b_k"]).reshape(B, m_r, H, -1)
+    v = (tenant_matmul(kv_in, params["w_v"], tenants)
+         + params["b_v"]).reshape(B, m_r, H, -1)
+    scores = per_tenant(lambda a, b: torch.einsum("bhd,bnhd->bhn", a, b),
+                        tenants, q, k) / math.sqrt(q.shape[-1])
     attn = pruning.masked_softmax(scores, valid[:, None, :])
-    agg = torch.einsum("bhn,bnhd->bhd", attn, v).reshape(B, -1)
-    h = torch.cat([fp, agg], dim=-1) @ params["w_out"] + params["b_out"]
+    agg = per_tenant(lambda a, b: torch.einsum("bhn,bnhd->bhd", a, b),
+                     tenants, attn, v).reshape(B, -1)
+    h = (tenant_matmul(torch.cat([fp, agg], dim=-1), params["w_out"], tenants)
+         + params["b_out"])
     return h, scores.mean(dim=1)
 
 

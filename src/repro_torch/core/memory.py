@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.utils import FrozenConfig
+from repro_torch.utils import FrozenConfig, tenant_matmul
 from repro_torch.core import time_encode as te
 
 
@@ -62,24 +62,28 @@ def _gates(gi: torch.Tensor, gh: torch.Tensor,
     return (1.0 - z) * n + z * s
 
 
-def gru_cell(params: dict, mail: torch.Tensor,
-             s: torch.Tensor) -> torch.Tensor:
+def gru_cell(params: dict, mail: torch.Tensor, s: torch.Tensor,
+             tenants: int = 1) -> torch.Tensor:
     """GRU cell on the whole message. mail (B, f_mail), s (B, f_mem) ->
-    (B, f_mem)."""
-    return _gates(mail @ params["w_i"] + params["b_i"],
-                  s @ params["w_h"] + params["b_h"], s)
+    (B, f_mem); the products run each of ``tenants`` blocks of rows on
+    its own (``utils.tenant_matmul``)."""
+    return _gates(tenant_matmul(mail, params["w_i"], tenants) + params["b_i"],
+                  tenant_matmul(s, params["w_h"], tenants) + params["b_h"], s)
 
 
 def gru_cell_lut(params: dict, mail_raw: torch.Tensor,
-                 time_rows: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+                 time_rows: torch.Tensor, s: torch.Tensor,
+                 tenants: int = 1) -> torch.Tensor:
     """GRU cell with the time contribution pre-projected (LUT-fused path).
 
     ``mail_raw`` (B, f_mail_raw); ``time_rows`` (B, 3*f_mem) LUT rows folded
-    through W_i[time rows]; ``s`` (B, f_mem) -> (B, f_mem).
+    through W_i[time rows]; ``s`` (B, f_mem) -> (B, f_mem). ``tenants`` as
+    in ``gru_cell``.
     """
     n_raw = mail_raw.shape[-1]
-    return _gates(mail_raw @ params["w_i"][:n_raw] + params["b_i"]
-                  + time_rows, s @ params["w_h"] + params["b_h"], s)
+    return _gates(tenant_matmul(mail_raw, params["w_i"][:n_raw], tenants)
+                  + params["b_i"] + time_rows,
+                  tenant_matmul(s, params["w_h"], tenants) + params["b_h"], s)
 
 
 def build_mail_raw(s_self: torch.Tensor, s_other: torch.Tensor,
@@ -92,22 +96,23 @@ def update_memory(gru_params: dict, time_params: dict, cfg: GRUConfig,
                   mail_raw: torch.Tensor, mail_ts: torch.Tensor,
                   mail_valid: torch.Tensor, s: torch.Tensor,
                   last_update: torch.Tensor, *, encoder: str = "cosine",
-                  lut_folded: dict | None = None):
+                  lut_folded: dict | None = None, tenants: int = 1):
     """Consume cached messages: s' = UPDT(mail, s) (Alg. 1 lines 3-5).
     dt = mail_ts - last_update; vertices without valid mail keep their
-    memory. Returns (s_new, last_update_new)."""
+    memory. Returns (s_new, last_update_new). ``tenants``: the rows are
+    that many tenants' equal blocks (``gru_cell``)."""
     dt = mail_ts - last_update
     if encoder == "cosine":
         mail = torch.cat([mail_raw, te.cosine_encode(time_params, dt)],
                          dim=-1)
-        s_new = gru_cell(gru_params, mail, s)
+        s_new = gru_cell(gru_params, mail, s, tenants)
     elif encoder == "lut":
         folded = lut_folded
         if folded is None:
             folded = te.fold_projection(time_params,
                                         gru_params["w_i"][cfg.f_mail_raw:])
         s_new = gru_cell_lut(gru_params, mail_raw,
-                             te.lut_encode(folded, dt), s)
+                             te.lut_encode(folded, dt), s, tenants)
     else:
         raise ValueError(f"unknown encoder {encoder!r}")
     s_out = torch.where(mail_valid[:, None], s_new, s)

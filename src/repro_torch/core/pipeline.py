@@ -25,7 +25,7 @@ A pipeline runs on ``cuda`` unless it is given ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -240,8 +240,10 @@ class TGNPipeline:
         src rows, then its B dst rows. Vertex ids are offset by t·V, so
         every gather, scatter, top-k and kernel call runs once over the
         T·2B rows; races (last write wins, ring slots) are resolved within
-        each tenant's rows, and edge and node features are shared. Each
-        tenant's results equal ``step`` on its own state. Returns a
+        each tenant's rows, and edge and node features are shared. The
+        stages' torch products run on each tenant's rows alone
+        (``utils.per_tenant``). Each tenant's results equal ``step`` on
+        its own state, bit for bit. Returns a
         BatchOut whose leaves carry the tenant axis ((T, B, f_emb),
         (T, 2B, m_r)) and whose ``state`` is ``tables``."""
         src, dst, eid, ts, valid = batch
@@ -278,7 +280,8 @@ class TGNPipeline:
             logits, nvalid, ndt = sel.full_logits, sel.full_valid, sel.full_dt
         else:
             # 1. UPDT: consume cached mail for involved vertices
-            s_upd, lu_upd = st.memory_updater(params, aux, tables, vids)
+            s_upd, lu_upd = st.memory_updater(params, aux, tables, vids,
+                                              tenants=T)
             # 2. chronological commit of memory
             st.committer.commit_memory(tables, vids, winners, s_upd, lu_upd)
             # 3. GNN embeddings (sampler + aggregator on updated memory)
@@ -287,7 +290,8 @@ class TGNPipeline:
             s_self = tables.memory[vids.long()]
             f_self = (node_feats[local.reshape(-1).long()]
                       if node_feats is not None else None)
-            h, logits = st.aggregator(params, aux, nb, s_self, f_self)
+            h, logits = st.aggregator(params, aux, nb, s_self, f_self,
+                                      tenants=T)
             nvalid, ndt = nb.full_valid, nb.full_dt
             mem_t = tables.memory
             ms, md = mem_t[rows2[:, 0]], mem_t[rows2[:, 1]]
@@ -339,26 +343,25 @@ class TGNPipeline:
 class CoalescedRound:
     """One Python call that advances EVERY cohort of a serving round.
 
-    The cohorts are laid out as contiguous row segments of a common
-    super-batch (rows = the sum of the cohorts' capacities, columns = the
-    widest batch); each segment is advanced by the ``batched_step`` of the
-    pipeline that built it, so every kernel runs once per cohort over the
+    The cohorts' lanes (one a cohort, or one a shard of a cohort on a
+    device mesh) are laid out as contiguous row segments of a common
+    super-batch (rows = the sum of the lanes' slots, columns = the widest
+    batch); each segment is advanced by its lane's step, the
+    ``batched_step`` of the pipeline that built it on the lane's
+    parameters and tables, so every kernel runs once per lane over the
     stacked rows of all its tenants. The segments' steps are issued back
     to back with no host sync in between.
 
     The lane table is static: segment i's rows are advanced by
-    ``parts[i]``'s program (``stages.variant_id``). Each segment
-    keeps its own width (the cohort's widest batch this round, the width
+    ``parts[i]``'s program (``stages.variant_id``), a teacher lane and
+    student lanes on their own weights in the same round. Each segment
+    keeps its own width (its cohort's widest batch this round, the width
     its per-cohort launch would take), so a tenant's rows see the same
     shapes as when its cohort launches alone. Pad rows (idle tenants,
     spare slots, batch-width padding) are ``valid=False``: the
     last-write-wins commits and the ring insert send their writes to the
-    scratch row, so they change no tenant's state.
-
-    ``params`` is a tuple aligned with the segments (a teacher lane and
-    student lanes on their own weights advance in the same round) or one
-    mapping broadcast to every lane. ``edges``, the round's count of valid
-    edges, is summed on the device and left pending.
+    scratch row, so they change no tenant's state. ``edges``, the round's
+    count of valid edges, is summed on the device and left pending.
 
     ``calls`` counts rounds issued through this layout; ``traces`` counts
     layout builds: 1 for the life of this object, so a live admission into
@@ -368,11 +371,12 @@ class CoalescedRound:
     """
 
     def __init__(self, parts, *, obs=None):
-        """``parts``: ``(pipeline, aux, rows)`` a cohort, ``rows`` its
-        capacity (tenant slots)."""
-        self.parts = tuple((p, a, int(r)) for p, a, r in parts)
+        """``parts``: ``(pipeline, step, rows)`` a lane: ``step(batch)``
+        advances the lane's ``rows`` tenant slots in place and returns
+        their BatchOut."""
+        self.parts = tuple((p, step, int(r)) for p, step, r in parts)
         segments, lo = [], 0
-        for _pipe, _aux, rows in self.parts:
+        for _pipe, _step, rows in self.parts:
             segments.append((lo, lo + rows))
             lo += rows
         self.segments = tuple(segments)
@@ -385,26 +389,19 @@ class CoalescedRound:
             self._g_calls = obs.gauge("compile.round_calls")
             self._g_calls.set(0)
 
-    def __call__(self, params, states: tuple, superbatch: tuple,
-                 edge_feats, node_feats=None, *, widths: tuple | None = None):
-        """``states``: the cohorts' stacked tables, aligned with the
-        segments; ``superbatch``: (rows, width) src, dst, eid, ts, valid.
-        Returns ``(outs, edges)``: a ``batched_step`` BatchOut a cohort,
+    def __call__(self, superbatch: tuple, *, widths: tuple | None = None):
+        """``superbatch``: (rows, width) src, dst, eid, ts, valid.
+        Returns ``(outs, edges)``: a ``batched_step`` BatchOut a lane,
         and the round's valid-edge count as a device scalar."""
         if widths is None:
             widths = (superbatch[0].shape[1],) * len(self.parts)
-        if isinstance(params, Mapping):      # shared-params fleet
-            params = (params,) * len(self.parts)
         self.calls += 1
         if self._g_calls is not None:
             self._g_calls.set(self.calls)
-        outs = []
-        for (lo, hi), (pipe, aux, _rows), p, state, w in zip(
-                self.segments, self.parts, params, states, widths):
-            seg = tuple(x[lo:hi, :w] for x in superbatch)
-            outs.append(pipe.batched_step(p, aux, state, seg, edge_feats,
-                                          node_feats))
-        return tuple(outs), superbatch[4].sum()
+        outs = tuple(step(tuple(x[lo:hi, :w] for x in superbatch))
+                     for (lo, hi), (_p, step, _r), w in zip(
+                         self.segments, self.parts, widths))
+        return outs, superbatch[4].sum()
 
 
 def build_pipeline(spec, use_kernels=False, device=None,

@@ -38,6 +38,7 @@ from repro_torch.core import attention as attn_mod
 from repro_torch.core import mailbox, memory, pruning, time_encode as te
 from repro_torch.core import updater
 from repro_torch.kernels import ops as kops
+from repro_torch.utils import per_tenant, tenant_matmul
 
 #: Kernel-backend tiers. ``use_kernels`` accepts a tier name or a bool
 #: (False -> "ref", True -> "staged"):
@@ -104,9 +105,9 @@ class StageBundle(NamedTuple):
     """The resolved stage stack for one variant and tier. The fused tier
     carries ``fused`` for the step and the staged sampler and aggregator
     for ``embed``; its memory updater is None."""
-    memory_updater: object      # (params, aux, state, vids) -> (s_upd, lu_upd)
+    memory_updater: object      # (params, aux, state, vids, tenants) -> (s_upd, lu_upd)
     sampler: object             # (params, aux, state, ef, vids, t) -> Neighborhood
-    aggregator: object          # (params, aux, nb, s_self, f_self) -> (h, logits)
+    aggregator: object          # (params, aux, nb, s_self, f_self, tenants) -> (h, logits)
     committer: object           # LastWriteWinsCommitter
     names: dict                 # stage name -> backend label
     variant_id: int             # lane id of this stage program (variant_lane)
@@ -184,14 +185,16 @@ def make_prepare(cfg, use_kernels=False):
 
 
 def make_memory_updater(cfg, staged: bool):
-    """UPDT: ``muu(params, aux, state, vids) -> (s_upd, lu_upd)`` from the
-    cached mail of ``vids``; vertices without valid mail keep their rows.
-    The kernels serve the LUT encoder; the cosine encoder runs its torch
-    reference on every tier."""
+    """UPDT: ``muu(params, aux, state, vids, tenants=1) -> (s_upd,
+    lu_upd)`` from the cached mail of ``vids``; vertices without valid
+    mail keep their rows. The kernels serve the LUT encoder; the cosine
+    encoder runs its torch reference on every tier, its products on each
+    of the ``tenants`` blocks of ``vids`` on its own
+    (``memory.update_memory``)."""
     gcfg = cfg.gru
 
     if staged and cfg.encoder == "lut":
-        def muu(params, aux, state, vids):
+        def muu(params, aux, state, vids, tenants=1):
             vids = vids.long()
             mail_valid = state.mail_valid[vids]
             mail_ts = state.mail_ts[vids]
@@ -209,13 +212,14 @@ def make_memory_updater(cfg, staged: bool):
 
         return muu, "gru:lut-cuda"
 
-    def muu(params, aux, state, vids):
+    def muu(params, aux, state, vids, tenants=1):
         vids = vids.long()
         return memory.update_memory(
             params["gru"], params["time"], gcfg,
             state.mail[vids], state.mail_ts[vids], state.mail_valid[vids],
             state.memory[vids], state.last_update[vids],
-            encoder=cfg.encoder, lut_folded=aux.get("folded_gru"))
+            encoder=cfg.encoder, lut_folded=aux.get("folded_gru"),
+            tenants=tenants)
 
     return muu, f"gru:{cfg.encoder}-ref"
 
@@ -369,47 +373,52 @@ def make_sampler(cfg):
 
 
 def make_aggregator(cfg, staged: bool):
-    """``aggregator(params, aux, nb, s_self, f_self) -> (h, logits)``;
-    ``f_self`` are the rows' static node features, or None. The kernel
-    serves SAT with the LUT encoder; vanilla attention and the cosine
-    encoder run their torch references on every tier."""
+    """``aggregator(params, aux, nb, s_self, f_self, tenants=1) -> (h,
+    logits)``; ``f_self`` are the rows' static node features, or None. The
+    kernel serves SAT with the LUT encoder; vanilla attention and the
+    cosine encoder run their torch references on every tier. Their
+    products run each of the ``tenants`` blocks of rows on its own
+    (``utils.per_tenant``)."""
     dkv = cfg.f_mem + cfg.f_edge
 
     if cfg.attention == "vanilla":
-        def aggregator(params, aux, nb, s_self, f_self):
+        def aggregator(params, aux, nb, s_self, f_self, tenants=1):
             return attn_mod.vanilla_attention(
                 params["attn"], cfg.attn, params["time"], s_self, f_self,
-                nb.s_nbr, nb.e_nbr, nb.dt, nb.valid)
+                nb.s_nbr, nb.e_nbr, nb.dt, nb.valid, tenants)
 
         return aggregator, "attn:vanilla-ref"
 
-    def out_transform(attn_p, s_self, f_self, agg):
-        fp = attn_mod.feat_proj(attn_p["feat"], s_self, f_self)
-        return torch.cat([fp, agg], dim=-1) @ attn_p["w_out"] + attn_p["b_out"]
+    def out_transform(attn_p, s_self, f_self, agg, tenants):
+        fp = attn_mod.feat_proj(attn_p["feat"], s_self, f_self, tenants)
+        return (tenant_matmul(torch.cat([fp, agg], dim=-1), attn_p["w_out"],
+                              tenants) + attn_p["b_out"])
 
     if staged and cfg.encoder == "lut":
-        def aggregator(params, aux, nb, s_self, f_self):
+        def aggregator(params, aux, nb, s_self, f_self, tenants=1):
             kv = torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
             agg = kops.sat_aggregate(kv, nb.dt, nb.logits, nb.valid,
                                      aux["packed_sat"])
-            return (out_transform(params["attn"], s_self, f_self, agg),
-                    nb.full_logits)
+            return (out_transform(params["attn"], s_self, f_self, agg,
+                                  tenants), nb.full_logits)
 
         return aggregator, "attn:sat-lut-cuda"
 
-    def aggregator(params, aux, nb, s_self, f_self):
+    def aggregator(params, aux, nb, s_self, f_self, tenants=1):
         attn_p = params["attn"]
         attnw = pruning.masked_softmax(nb.logits, nb.valid)
         if cfg.encoder == "lut":
-            v = (torch.cat([nb.s_nbr, nb.e_nbr], dim=-1)
-                 @ attn_p["w_v"][:dkv]
+            v = (tenant_matmul(torch.cat([nb.s_nbr, nb.e_nbr], dim=-1),
+                               attn_p["w_v"][:dkv], tenants)
                  + te.lut_encode(aux["folded_attn"], nb.dt) + attn_p["b_v"])
         else:
             phi = te.cosine_encode(params["time"], nb.dt)
-            v = (torch.cat([nb.s_nbr, nb.e_nbr, phi], dim=-1)
-                 @ attn_p["w_v"] + attn_p["b_v"])
-        agg = torch.einsum("bn,bnd->bd", attnw, v)
-        return out_transform(attn_p, s_self, f_self, agg), nb.full_logits
+            v = (tenant_matmul(torch.cat([nb.s_nbr, nb.e_nbr, phi], dim=-1),
+                               attn_p["w_v"], tenants) + attn_p["b_v"])
+        agg = per_tenant(lambda a, b: torch.einsum("bn,bnd->bd", a, b),
+                         tenants, attnw, v)
+        return (out_transform(attn_p, s_self, f_self, agg, tenants),
+                nb.full_logits)
 
     return aggregator, f"attn:sat-{cfg.encoder}-ref"
 

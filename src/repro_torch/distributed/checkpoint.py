@@ -1,8 +1,8 @@
 """Checkpoints: atomic, versioned, checksummed.
 
-Port of the single-device half of ``repro.distributed.checkpoint``, in its
-on-disk format, so a checkpoint written by either package restores in the
-other and ``tree_digest`` agrees:
+Port of ``repro.distributed.checkpoint``, in its on-disk format, so a
+checkpoint written by either package restores in the other and
+``tree_digest`` agrees:
 
     <root>/step_00001000.tmp/     # written here first
         manifest.json             # paths, shapes, dtypes, crc32s, meta
@@ -20,9 +20,10 @@ Guarantees:
   * every leaf carries a crc32, so silent corruption is found at load, and
     ``restore_valid`` falls back to the newest step that loads;
   * ``AsyncCheckpointer`` copies to host memory at once and writes on a
-    background thread.
-
-Restoring onto a device mesh with shardings is not ported yet.
+    background thread;
+  * checkpoints hold whole logical arrays, and ``restore(...,
+    shardings=)`` places each leaf by its target's specs
+    (``tgn_sharding.NamedSharding``), so one restores onto any mesh shape.
 """
 from __future__ import annotations
 
@@ -148,7 +149,8 @@ def latest_step(root: str) -> int | None:
 CORRUPTION_ERRORS = (OSError, json.JSONDecodeError, KeyError, ValueError)
 
 
-def restore_valid(root: str, tree_like: Tree, *, device=None) -> tuple:
+def restore_valid(root: str, tree_like: Tree, *, device=None,
+                  shardings: Tree | None = None) -> tuple:
     """``restore`` of the newest step that loads and verifies, walking the
     committed steps newest to oldest and warning at each corrupt one.
     Returns ``(tree, meta, step)``. Raises ``FileNotFoundError`` when no
@@ -159,7 +161,8 @@ def restore_valid(root: str, tree_like: Tree, *, device=None) -> tuple:
     first_err = None
     for step in reversed(steps):
         try:
-            tree, meta = restore(root, tree_like, step=step, device=device)
+            tree, meta = restore(root, tree_like, step=step, device=device,
+                                 shardings=shardings)
             return tree, meta, step
         except CORRUPTION_ERRORS as e:
             if first_err is None:
@@ -171,12 +174,21 @@ def restore_valid(root: str, tree_like: Tree, *, device=None) -> tuple:
 
 
 def restore(root: str, tree_like: Tree, *, step: int | None = None,
-            device=None) -> tuple[Tree, dict]:
+            device=None, shardings: Tree | None = None) -> tuple[Tree, dict]:
     """Load a checkpoint into the structure of ``tree_like`` (leaves with a
     ``shape``), as tensors on ``device`` (``cuda`` unless the caller names
-    another). Returns ``(tree, meta)``. Raises on a checksum mismatch or a
-    structure that drifted."""
-    device = resolve_device(device)
+    another), or with ``shardings`` (a tree congruent to ``tree_like`` of
+    ``tgn_sharding.NamedSharding``) each leaf placed by its sharding: on
+    its mesh's first device, or as the pieces of its split dimension on
+    their devices. Returns ``(tree, meta)``. Raises on a checksum mismatch
+    or a structure that drifted."""
+    if shardings is None:
+        device = resolve_device(device)
+        place = [None] * len(tree_mod.leaves(tree_like))
+    else:
+        device = "cpu"
+        place = [s.place for s in tree_mod.leaves(
+            shardings, is_leaf=lambda x: hasattr(x, "spec"))]
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -187,7 +199,8 @@ def restore(root: str, tree_like: Tree, *, step: int | None = None,
 
     by_path = {e["path"]: e for e in manifest["leaves"]}
     out = []
-    for path, like in tree_mod.flatten_with_path(tree_like):
+    for (path, like), put in zip(tree_mod.flatten_with_path(tree_like),
+                                 place):
         e = by_path.get(path)
         if e is None:
             raise KeyError(f"checkpoint missing leaf {path!r}")
@@ -197,7 +210,8 @@ def restore(root: str, tree_like: Tree, *, step: int | None = None,
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{path!r}: shape {arr.shape} != "
                              f"{tuple(like.shape)}")
-        out.append(_from_saveable(arr, e["dtype"], device))
+        leaf = _from_saveable(arr, e["dtype"], device)
+        out.append(leaf if put is None else put(leaf))
     return tree_mod.unflatten(tree_like, out), manifest["meta"]
 
 

@@ -22,9 +22,11 @@ edges, whose chronological train window is ``TRAIN_STEPS`` batches of
 distills the student.
 
 ``fleet_session``: a multi-tenant session on the Wikipedia path (``FLEET``:
-eight tenants on five lanes, the teacher on its own parameter set),
-``fleet_feeds``: each tenant's own contiguous window of the stream, and
-``lane_kernels``: the port kernels a cohort's step launches.
+eight tenants on five lanes, the teacher on its own parameter set), on
+one device or on the sharded fabric's mesh (``FABRIC_MESHES``: one card
+stands for every device of a mesh), ``fleet_feeds``: each tenant's own
+contiguous window of the stream, and ``lane_kernels``: the port kernels a
+cohort's step launches.
 """
 from __future__ import annotations
 
@@ -56,6 +58,17 @@ FLEET = (((STUDENT, "fused", None),) * 3 + ((STUDENT, "staged", None),) * 2
             ("sat+lut", "staged", None),
             ("vanilla+cosine", "staged", "teacher")))
 FLEET_ROUNDS = 20            # rounds of B edges a tenant
+#: the fabric's meshes: the true one-device mesh, a tenant axis, and a
+#: tenant x vertex mesh
+FABRIC_MESHES = ("tenant=1", "tenant=4", "tenant=2,vertex=2")
+#: the fabric's fleet: ``FLEET`` and a ref-tier cohort of two np4 tenants
+FABRIC = FLEET + ((STUDENT, "ref", None),) * 2
+FABRIC_ROUNDS = 10           # rounds of each mesh and round kind
+#: the fabric's tables: the graph's 9,227 vertices and the padding vertex
+#: 0 of TGN's preprocessing of Wikipedia (ids from 1), 9,228 = 4 x 2,307,
+#: so a vertex axis of 2 or 4 splits V (the rules drop an axis that does
+#: not divide V, and 9,227 is prime)
+FABRIC_V = GRAPH["n_users"] + GRAPH["n_items"] + 1
 TRAIN_B = 100                # edges per training batch
 TRAIN_STEPS = 100            # batches in the cut stream's train window
 
@@ -111,16 +124,26 @@ def build_gdelt(device) -> tuple:
     return (g, *model(g, STUDENT, device))
 
 
-def fleet_session(g, device, lanes=FLEET, coalesce: bool = True):
+def fleet_session(g, device, lanes=FLEET, coalesce: bool = True,
+                  mesh=None, n_nodes: int | None = None):
     """``(session, tenant ids)``: one tenant a lane of ``lanes`` on graph
     ``g`` at paper width, on the student's weights unless the lane names a
     parameter set (registered with weights for its variant, from the
-    seed)."""
+    seed). With ``mesh`` (a ``tgn_sharding.TenantMesh``) the session is
+    the sharded fabric's; ``n_nodes`` overrides the tables' vertex
+    count."""
+    from repro_torch.serving.cluster import ShardedSessionManager
     from repro_torch.serving.session import SessionManager
     cfg, params = model(g, STUDENT, device)
-    mgr = SessionManager(params, g.edge_feats, g.node_feats, model=cfg,
-                         use_kernels="staged", coalesce=coalesce,
-                         device=device)
+    if n_nodes is not None:
+        cfg = cfg.replace(n_nodes=n_nodes)
+    kw = dict(model=cfg, use_kernels="staged", coalesce=coalesce)
+    if mesh is None:
+        mgr = SessionManager(params, g.edge_feats, g.node_feats,
+                             device=device, **kw)
+    else:
+        mgr = ShardedSessionManager(params, g.edge_feats, g.node_feats,
+                                    mesh=mesh, **kw)
     for variant, _tier, pset in lanes:
         if pset is not None and pset not in mgr.param_store:
             mgr.register_params(pset, model(g, variant, device)[1])

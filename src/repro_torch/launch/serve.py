@@ -24,6 +24,13 @@ burn a tenant, ``--metrics-every`` prints the metrics registry, and
 the stream: NDJSON requests (ingest, attach, detach, stats, metrics,
 flush), batched under ``--deadline-ms`` / ``--max-rows``.
 
+``--mesh`` serves the fleet on the sharded tenant fabric
+(``serving/cluster.py``): ``"tenant=4,vertex=2"``, ``"8"``, or ``""`` for
+every visible card on the tenant axis. On the GPU the mesh takes the
+visible cards and raises when there are too few; with ``--device cpu``
+it takes that many repeats of the CPU. ``--restore`` resumes snapshots
+onto any mesh shape.
+
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels fused
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels ref \\
@@ -41,6 +48,9 @@ Examples:
         --snapshot-dir /tmp/snaps --snapshot-every 5 --slo-ms 25
     PYTHONPATH=src python -m repro_torch.launch.serve --tenants 3 \\
         --listen 127.0.0.1:0 --serve-seconds 10 --guard --journal-dir /tmp/wal
+    PYTHONPATH=src python -m repro_torch.launch.serve --tenants 5 \\
+        --mesh tenant=2,vertex=2 --edges 800 --batch 100 --f-mem 16 \\
+        --device cpu
 
 ``--variant`` takes any registry name or alias of
 ``repro_torch.core.pipeline`` (``teacher``, ``"+SAT"``, ``"+NP(S)"``,
@@ -53,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import zlib
 
 import torch
@@ -60,6 +71,8 @@ import torch
 from repro_torch.core import tgn
 from repro_torch.core.pipeline import variant_config
 from repro_torch.data import stream, temporal_graph as tgd
+from repro_torch.distributed import tgn_sharding as tsh
+from repro_torch.serving.cluster import ShardedSessionManager
 from repro_torch.serving.engine import EngineConfig, StreamingEngine
 from repro_torch.serving.session import DEFAULT_PARAMS, SessionManager
 from repro_torch.utils import resolve_device
@@ -311,12 +324,27 @@ def run_frontend(args, g, cfg, params, device) -> dict:
     return stats
 
 
+def _fabric_mesh(spec, device):
+    """The ``--mesh`` mesh: the visible cards, or repeats of the CPU."""
+    if device.type == "cuda":
+        return tsh.make_tenant_mesh(spec)
+    n = math.prod(tsh.mesh_sizes(spec, 1).values())
+    return tsh.make_tenant_mesh(spec, devices=[device] * n)
+
+
 def run_fleet(args, g, cfg, params, device) -> dict:
     """The stream split into one contiguous feed a tenant, served by one
-    session, with the serving stack's flags."""
-    mgr = SessionManager(params, g.edge_feats, g.node_feats, model=cfg,
-                         use_kernels=args.kernels,
-                         coalesce=not args.per_cohort, device=device)
+    session (on the ``--mesh`` fabric when given), with the serving
+    stack's flags."""
+    kw = dict(model=cfg, use_kernels=args.kernels,
+              coalesce=not args.per_cohort)
+    if args.mesh is not None:
+        mgr = ShardedSessionManager(params, g.edge_feats, g.node_feats,
+                                    mesh=_fabric_mesh(args.mesh, device),
+                                    **kw)
+    else:
+        mgr = SessionManager(params, g.edge_feats, g.node_feats,
+                             device=device, **kw)
     tracer = _make_tracer(args)
     if tracer is not None:
         mgr.set_tracer(tracer)
@@ -330,7 +358,10 @@ def run_fleet(args, g, cfg, params, device) -> dict:
                         journal=journal)
     tids = _add_tenants(mgr, args, snapshots)
     print("session cohorts:", {k: (c["tenants"], c["tier"])
-                               for k, c in mgr.describe().items()})
+                               for k, c in mgr.describe().items()
+                               if "tenants" in c})
+    if args.mesh is not None:
+        print("fabric mesh:", mgr.mesh.shape)
     span = g.n_edges // len(tids)
     streams = {}
     for i, tid in enumerate(tids):
@@ -386,7 +417,7 @@ def run_tgn(args) -> dict:
         return run_frontend(args, g, cfg, params, device)
     if (args.tenant_variants or args.tenants > 1 or args.snapshot_dir
             or args.slo_ms or args.trace_out or args.guard
-            or args.journal_dir):
+            or args.journal_dir or args.mesh is not None):
         return run_fleet(args, g, cfg, params, device)
     engine = StreamingEngine(EngineConfig(model=cfg, use_kernels=args.kernels),
                              params, g.edge_feats, g.node_feats,
@@ -431,6 +462,11 @@ def main(argv=None):
     ap.add_argument("--per-cohort", action="store_true",
                     help="one launch a cohort instead of the coalesced "
                          "round (the baseline)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve the fleet on the sharded tenant fabric: a "
+                         "mesh spec like '8' or 'tenant=4,vertex=2' ('' "
+                         "= every card on the tenant axis); too few "
+                         "devices raise")
     ap.add_argument("--snapshot-dir", default=None,
                     help="snapshot every tenant's state here (atomic, "
                          "crc32-checked)")
@@ -494,6 +530,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.listen is not None:
+        ap.error("--mesh serves the offline fleet, not --listen")
     if args.restore and not args.snapshot_dir:
         ap.error("--restore needs --snapshot-dir")
     if args.snapshot_every and not args.snapshot_dir:

@@ -1,12 +1,25 @@
-"""Tenant snapshots, restore and migration for the port's session.
+"""Sharded tenant fabric, and tenant snapshots, restore and migration.
 
-Port of the single-device half of ``repro.serving.cluster`` (the mesh
-half, ``ShardedSessionManager``, is not ported yet). Built on
-``distributed/checkpoint.py`` (tmp dir + rename, a crc32 a leaf,
-versioned steps) in the reference's on-disk format: a tenant's
-VertexState plus its variant and config is saved under
-``<root>/<tenant>/step_XXXXXXXX/``, and a snapshot either package wrote
-restores in the other.
+Port of ``repro.serving.cluster``:
+
+  * ``ShardedSessionManager`` — the session on a device mesh
+    (``distributed/tgn_sharding.py``): same API, same trajectories. Each
+    cohort's slots are padded to a multiple of the mesh's ``tenant`` axis
+    (pad slots are idle, a bitwise no-op) and cut into contiguous tenant
+    shards, each with tables of its own on its device; parameters and
+    feature stores are replicated once a distinct device. A ``vertex``
+    axis also splits each tenant's V rows over the shard's vertex group.
+    The step has no cross-tenant reduction, and every torch product runs
+    on one tenant's rows at a time (``utils.per_tenant``), so a tenant's
+    trajectory is bit for bit the unsharded session's.
+
+  * snapshot / restore / migration on any manager — built on
+    ``distributed/checkpoint.py`` (tmp dir + rename, a crc32 a leaf,
+    versioned steps) in the reference's on-disk format: a tenant's
+    VertexState plus its variant and config is saved under
+    ``<root>/<tenant>/step_XXXXXXXX/``, a snapshot either package wrote
+    restores in the other, and it restores onto any mesh shape or the
+    unsharded session (the target places the rows).
 
 Capture: the port commits a cohort's tables in place, so a snapshot
 cannot hold references to them the way the reference holds its immutable
@@ -19,16 +32,18 @@ before it reads the buffers.
 
 ::
 
-    mgr = SessionManager(params, edge_feats, model=cfg)
+    mgr = ShardedSessionManager(params, edge_feats, model=cfg,
+                                mesh="tenant=4,vertex=2")
     a = mgr.add_tenant()
     mgr.step({a: batch})
     snapshot_tenant(mgr, a, "/ckpt/fleet", step=rounds)
-    # ... later, in another session:
+    # ... later, in another session of any mesh shape:
     b = restore_tenant(other_mgr, "/ckpt/fleet", a)
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -37,42 +52,265 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from repro_torch.core import mailbox, pipeline as pl
+from repro_torch.core import mailbox, pipeline as pl, tgn
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed import tgn_sharding as tsh
 from repro_torch.serving.session import (DEFAULT_PARAMS, SessionManager,
-                                         _mark)
+                                         _Cohort, _mark, to_device_tree)
+
+
+class _Shard:
+    """Slots ``[lo, lo + slots)`` of a sharded cohort, on one vertex group
+    (``devices``; its first device runs the launch).
+
+    Without a vertex split (``ranges`` None) the shard's tables are
+    stacked tables of their own on the first device: ``slots·V + 1``
+    rows, its own scratch row, its row ids from its own base. With one,
+    device j owns rows ``ranges[j]`` of every slot: the first device's
+    range is held in ``tables`` itself, every other device's in a part of
+    its own (``parts``). A launch assembles the group's rows in
+    ``tables`` with peer copies from the parts, runs the same step there,
+    and writes each part's range back to its owner: the analogue of the
+    all-gather XLA places before a Pallas call on a sharded operand (the
+    kernels gather rows by id inside their bodies). ``exchanged`` counts
+    the bytes those copies move."""
+
+    def __init__(self, cohort: "_ShardedCohort", lo: int, states: list,
+                 devices: list, ranges, exchanged):
+        self.lo, self.slots, self.V = lo, len(states), cohort.cfg.n_nodes
+        self.device = devices[0]
+        self.pipeline, self.params, self.aux = cohort.on(self.device)
+        self.ranges = ranges
+        self._exchanged = exchanged
+        self.tables = mailbox.stack_states(
+            [mailbox.VertexState(*(t.to(self.device) for t in st))
+             for st in states], self.pipeline.init_state())
+        #: ``((a, b), part)`` for each device of the group after the first
+        self.parts = [] if ranges is None else [
+            ((a, b), mailbox.VertexState(*(
+                torch.cat([t[a:b] for t in col]).to(d)
+                for col in zip(*states))))
+            for d, (a, b) in zip(devices[1:], ranges[1:])]
+
+    def _held(self) -> list:
+        """``[(a, b, rows of every slot), ...]`` where each range lives:
+        leaves of (slots, b - a, ...) views."""
+        c, V = self.slots, self.V
+        a, b = (0, V) if self.ranges is None else self.ranges[0]
+        held = [(a, b, mailbox.VertexState(*(
+            t[:c * V].view(c, V, *t.shape[1:])[:, a:b]
+            for t in self.tables)))]
+        return held + [(a, b, mailbox.VertexState(*(
+            t.view(c, b - a, *t.shape[1:]) for t in part)))
+            for (a, b), part in self.parts]
+
+    def pieces(self, k: int) -> list:
+        """Local slot ``k``'s rows where they live (``_Cohort.pieces``)."""
+        return [(a, b, mailbox.VertexState(*(t[k] for t in rows)))
+                for a, b, rows in self._held()]
+
+    def _exchange(self, tables: mailbox.VertexState, gather: bool) -> None:
+        """Copy every other device's range into (``gather``) or out of
+        the assembled tables."""
+        c, V = self.slots, self.V
+        moved = 0
+        for (a, b), part in self.parts:
+            for whole, mine in zip(tables, part):
+                whole = whole[:c * V].view(c, V, *whole.shape[1:])[:, a:b]
+                mine = mine.view(c, b - a, *mine.shape[1:])
+                dst, src = (whole, mine) if gather else (mine, whole)
+                dst.copy_(src, non_blocking=True)
+                moved += mine.numel() * mine.element_size()
+        self._exchanged.inc(moved)
+
+    def step(self, edge_feats, node_feats, scratch: bool,
+             batch: tuple) -> tgn.BatchOut:
+        """Advance the shard's slots by ``batch`` (its rows of the cohort's
+        stacked batch), in place unless ``scratch``."""
+        batch = tuple(x.to(self.device, non_blocking=True) for x in batch)
+        tables = self.tables
+        if scratch:
+            tables = mailbox.VertexState(*(t.clone() for t in tables))
+        self._exchange(tables, gather=True)
+        out = self.pipeline.batched_step(self.params, self.aux, tables, batch,
+                                         edge_feats, node_feats)
+        if not scratch:
+            self._exchange(tables, gather=False)
+        return out
+
+    def finite(self) -> torch.Tensor:
+        """``(slots,)`` bool: every floating row of the slot is finite."""
+        c = self.slots
+        flags = torch.ones((c,), dtype=torch.bool, device=self.device)
+        for _a, _b, rows in self._held():
+            for leaf in rows:
+                if leaf.dtype.is_floating_point:
+                    flags &= torch.isfinite(leaf).reshape(c, -1).all(
+                        dim=1).to(self.device)
+        return flags
+
+
+class _ShardedCohort(_Cohort):
+    """A cohort whose slots live in tenant shards on the fabric mesh."""
+
+    def __init__(self, cfg: tgn.TGNConfig, use_kernels, replicas: dict,
+                 mesh: tsh.TenantMesh, reserve=None,
+                 param_set: str = DEFAULT_PARAMS, exchanged=None):
+        self.mesh = mesh
+        first = mesh.devices.reshape(-1)[0]
+        super().__init__(cfg, use_kernels, replicas[first], first,
+                         reserve=reserve, param_set=param_set)
+        self._replicas = replicas
+        self._on = {first: (self.pipeline, self.params, self.aux)}
+        self._exchanged = exchanged
+        self.ranges = tsh.vertex_ranges(mesh, tgn.init_state(cfg, "meta"))
+        self.shards: list[_Shard] = []
+
+    def on(self, device) -> tuple:
+        """``(pipeline, params, aux)`` of the cohort on ``device``."""
+        if device not in self._on:
+            pipe = pl.build_pipeline(self.cfg, self.tier, device=device)
+            params = self._replicas[device]
+            self._on[device] = (pipe, params, pipe.prepare(params))
+        return self._on[device]
+
+    def _target_capacity(self, n: int) -> int:
+        """The reserve's class (or ``n``), rounded up to a multiple of the
+        mesh's tenant axis."""
+        return tsh.tenant_capacity(super()._target_capacity(n), self.mesh)
+
+    def _fit(self, states: list) -> None:
+        cap = self._capacity_for(len(states))
+        init = self.pipeline.init_state()
+        states = states + [init] * (cap - len(states))
+        groups = self.mesh.groups()
+        c = cap // len(groups)
+        self.shards = [_Shard(self, k * c, states[k * c:(k + 1) * c], g,
+                              self.ranges, self._exchanged)
+                       for k, g in enumerate(groups)]
+        self.capacity = cap
+
+    def _empty(self) -> None:
+        self.shards, self.capacity = [], 0
+
+    def _shard_of(self, i: int) -> tuple:
+        shard = self.shards[i // self.shards[0].slots]
+        return shard, i - shard.lo
+
+    def view(self, i: int):
+        raise TypeError("a sharded cohort's slot lives in the pieces of "
+                        "its shard: read it with read_slot or pieces")
+
+    def pieces(self, i: int) -> list:
+        shard, k = self._shard_of(i)
+        return shard.pieces(k)
+
+    def slot_shardings(self, i: int) -> mailbox.VertexState:
+        """The slot's vertex group, split as its shard keeps it."""
+        return self._group_shardings(self.mesh.groups()[
+            i // self.shards[0].slots])
+
+    def lanes(self, feats, scratch: bool = False) -> list:
+        """One lane a tenant shard, on the shard's device."""
+        return [(s.lo, s.slots, s.pipeline,
+                 functools.partial(s.step, *feats(s.device), scratch))
+                for s in self.shards]
+
+    def finite_slots(self) -> torch.Tensor:
+        return torch.cat([s.finite().to(self.device) for s in self.shards])
+
+
+class ShardedSessionManager(SessionManager):
+    """SessionManager on a device mesh: same API, same trajectories.
+
+    ``mesh`` is a ``tgn_sharding.TenantMesh`` or a spec for
+    ``make_tenant_mesh`` (``"8"``, ``"tenant=4,vertex=2"``, ``None`` =
+    every CUDA device on the tenant axis); a mesh that needs more devices
+    than there are raises. The session's device is the mesh's first:
+    rounds are staged there (one copy), and each tenant shard takes its
+    rows of the super-batch to its own device. Parameter sets and the
+    feature stores are replicated once a distinct device. Tenant
+    lifecycle, idle masking, chronological commits, snapshots and
+    metrics are the unsharded session's. ``fabric.vertex_exchange_bytes``
+    in ``obs`` counts the bytes the vertex axis's copies move.
+    """
+
+    def __init__(self, params: dict, edge_feats, node_feats=None, *,
+                 mesh=None, **kw):
+        if "device" in kw:
+            raise TypeError("the mesh places a sharded session: pass "
+                            "mesh=, not device=")
+        if not isinstance(mesh, tsh.TenantMesh):
+            mesh = tsh.make_tenant_mesh(mesh)
+        self.mesh = mesh
+        kw["device"] = mesh.devices.reshape(-1)[0]
+        #: id(placed set) -> {device: the set there}
+        self._replicas: dict[int, dict] = {}
+        super().__init__(params, edge_feats, node_feats, **kw)
+        self._feat_replicas = {
+            d: (self.edge_feats.to(d), None if self.node_feats is None
+                else self.node_feats.to(d))
+            for d in mesh.distinct_devices}
+
+    def _place_params(self, params: dict) -> dict:
+        """Replicate a registered parameter set on every distinct device;
+        the set on the first device is the registered one."""
+        reps = {d: to_device_tree(params, d)
+                for d in self.mesh.distinct_devices}
+        first = reps[self.mesh.devices.reshape(-1)[0]]
+        self._replicas[id(first)] = reps
+        return first
+
+    def _feats(self, device) -> tuple:
+        return self._feat_replicas[device]
+
+    def _make_cohort(self, cfg: tgn.TGNConfig, use_kernels,
+                     param_set: str = DEFAULT_PARAMS) -> _ShardedCohort:
+        params = self.param_store.get(param_set)
+        return _ShardedCohort(
+            cfg, use_kernels, self._replicas[id(params)], self.mesh,
+            reserve=self.reserve, param_set=param_set,
+            exchanged=self.obs.counter("fabric.vertex_exchange_bytes"))
+
+    def describe(self) -> dict:
+        return {**super().describe(), "mesh": self.mesh.shape}
 
 
 class _Capture:
-    """A tenant's state copied to host memory, and the event after the
-    copies (None on the CPU, where they are done when issued)."""
+    """A tenant's state copied to host memory, and the events after the
+    copies (none on the CPU, where they are done when issued)."""
 
-    def __init__(self, tree: dict, meta: dict, done):
+    def __init__(self, tree: dict, meta: dict, done: list):
         self.tree = tree
         self.meta = meta
         self._done = done
 
     def wait(self) -> dict:
-        """The host tree, once the device has written it."""
-        if self._done is not None:
-            self._done.synchronize()
+        """The host tree, once the devices have written it."""
+        for ev in self._done:
+            ev.synchronize()
         return self.tree
 
 
 def _capture_tenant(mgr: SessionManager, tid: str,
                     extra_meta: dict | None = None) -> _Capture:
-    """Copy ``tid``'s state to host memory on the serving thread's stream
-    (pinned buffers, non-blocking, one event after them), with its
-    manifest meta."""
+    """Copy ``tid``'s state to host memory (pinned buffers, non-blocking),
+    each piece of its rows on the stream of the device that holds it, one
+    event after them there; with its manifest meta."""
     cohort = mgr.cohort_of(tid)
-    view = cohort.view(cohort.tids.index(tid))
+    pieces = cohort.pieces(cohort.tids.index(tid))
+    V = cohort.cfg.n_nodes
     cuda = mgr.device.type == "cuda"
-    tree = {}
-    for f, t in zip(mailbox.VertexState._fields, view):
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-        host.copy_(t, non_blocking=cuda)
-        tree[f] = host
-    done = _mark(mgr.device)
+    tree = {f: torch.empty((V, *t.shape[1:]), dtype=t.dtype,
+                           pin_memory=cuda)
+            for f, t in zip(mailbox.VertexState._fields, pieces[0][2])}
+    done = []
+    for lo, hi, rows in pieces:
+        for f, t in zip(mailbox.VertexState._fields, rows):
+            tree[f][lo:hi].copy_(t, non_blocking=cuda)
+        ev = _mark(rows.memory.device)
+        if ev is not None:
+            done.append(ev)
     meta = {"tenant": tid,
             "variant": pl.variant_name(cohort.cfg),
             "config": dataclasses.asdict(cohort.cfg),
@@ -237,6 +475,12 @@ def _tree_like(cohort) -> dict:
     return cohort.pipeline.init_state()._asdict()
 
 
+def _slot_shardings(cohort, tid: str) -> dict:
+    """Where ``tid``'s restored leaves go: the devices that keep its rows
+    (``_tree_like``'s structure)."""
+    return cohort.slot_shardings(cohort.tids.index(tid))._asdict()
+
+
 def restore_tenant(mgr: SessionManager, root: str, tid: str, *,
                    name: str | None = None, step: int | None = None,
                    params: str | None = None, journal=None) -> str:
@@ -291,12 +535,13 @@ def restore_tenant(mgr: SessionManager, root: str, tid: str, *,
                 f"digests {have} — the trajectory would continue under "
                 "different weights; register the original parameters, or "
                 "pass params= to rebind explicitly")
+    place = _slot_shardings(cohort, new)
     if step is None:
         state, rmeta, _used = ckpt.restore_valid(d, _tree_like(cohort),
-                                                 device=mgr.device)
+                                                 shardings=place)
     else:
         state, rmeta = ckpt.restore(d, _tree_like(cohort), step=step,
-                                    device=mgr.device)
+                                    shardings=place)
     mgr.set_state(new, mailbox.VertexState(**state))
     if journal is not None and rmeta.get("journal") is not None:
         journal.replay(tid, rmeta["journal"], mgr.step, as_tid=new)
@@ -349,12 +594,13 @@ def restore_tenant_state(mgr: SessionManager, root: str, tid: str, *,
     same numerics a tier lower). Returns the step restored from."""
     cohort = mgr.cohort_of(tid)
     d = os.path.join(root, tid)
+    place = _slot_shardings(cohort, tid)
     if step is None:
         state, meta, used = ckpt.restore_valid(d, _tree_like(cohort),
-                                               device=mgr.device)
+                                               shardings=place)
     else:
         state, meta = ckpt.restore(d, _tree_like(cohort), step=step,
-                                   device=mgr.device)
+                                   shardings=place)
         used = step
     want = meta.get("config")
     have = dataclasses.asdict(cohort.cfg)

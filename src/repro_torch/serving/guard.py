@@ -75,21 +75,6 @@ from repro_torch.serving.faults import KernelFault
 DEGRADE_LADDER = {"fused": "staged", "staged": "ref"}
 
 
-def _finite_lanes(cohort) -> torch.Tensor:
-    """Per-slot health sentinel: ``(capacity,)`` bool on the device, True
-    where every floating table of the slot's V rows is finite. Reduces
-    over the stacked tables' first ``capacity * V`` rows: the scratch row
-    after them is not any tenant's."""
-    cap, V = cohort.capacity, cohort.cfg.n_nodes
-    flags = torch.ones((cap,), dtype=torch.bool,
-                       device=cohort.state.memory.device)
-    for leaf in cohort.state:
-        if leaf.dtype.is_floating_point:
-            rows = leaf[:cap * V].reshape(cap, -1)
-            flags &= torch.isfinite(rows).all(dim=1)
-    return flags
-
-
 class FleetGuard:
     """Per-round health supervisor over a ``SessionManager`` fleet
     (see module docstring for the detection/recovery model).
@@ -190,11 +175,10 @@ class FleetGuard:
         whose resident state went NaN/Inf. Every cohort's flags are read
         back together: the guard's one host sync per checked round."""
         mgr = self.mgr
-        cohorts = [c for c in mgr._cohorts.values()
-                   if c.state is not None and c.tids]
+        cohorts = [c for c in mgr._cohorts.values() if c.tids]
         if not cohorts:
             return
-        ok = torch.cat([_finite_lanes(c) for c in cohorts]).tolist()
+        ok = torch.cat([c.finite_slots() for c in cohorts]).tolist()
         lo = 0
         for cohort in cohorts:
             for i, tid in enumerate(cohort.tids):
@@ -331,7 +315,7 @@ class FleetGuard:
 
     def _tenant_healthy(self, tid: str) -> bool:
         cohort = self.mgr.cohort_of(tid)
-        return bool(_finite_lanes(cohort)[cohort.tids.index(tid)])
+        return bool(cohort.finite_slots()[cohort.tids.index(tid)])
 
     # ----------------------------------------------------- degradation
     def _cohort_key(self, cohort) -> tuple:

@@ -23,9 +23,11 @@ a registry of named parameter sets (the teacher, its distilled students):
 
 Numerics contract (``tests/test_torch_session.py``): a tenant's
 trajectory in a cohort of N equals, bit for bit, the same stream served
-alone, because each row of every kernel and of every torch product
-depends only on that row's inputs. ``StreamingEngine`` is a one-tenant
-view of this class.
+alone, because each row of every kernel depends only on that row's
+inputs and every torch product runs on one tenant's rows at a time
+(``utils.per_tenant``). ``StreamingEngine`` is a one-tenant view of this
+class; ``serving/cluster.py``'s ``ShardedSessionManager`` lays the same
+cohorts out on a device mesh.
 
 Steps do not block on the device; ``sync()`` (and ``summary()``) drain
 the fleet. A session runs on ``cuda`` unless it is given ``device="cpu"``.
@@ -51,6 +53,7 @@ import torch
 from repro_torch import tree
 from repro_torch.core import mailbox, pipeline as pl, stages, tgn
 from repro_torch.data.stream import EdgeBatch
+from repro_torch.distributed import tgn_sharding as tsh
 from repro_torch.distributed.checkpoint import tree_digest
 from repro_torch.obs import Histogram, MetricsRegistry
 from repro_torch.utils import resolve_device
@@ -312,6 +315,11 @@ class _Cohort:
     and a detach leaves its slot idle, with no relayout, until the class
     is exhausted. Without one the tables hold exactly the tenants, and
     shrink when one leaves.
+
+    The session reads and writes a slot's rows through ``pieces`` and
+    launches the cohort through ``lanes``; a sharded cohort
+    (``serving/cluster.py``) lays the same slots out over a device mesh
+    behind these two methods.
     """
 
     def __init__(self, cfg: tgn.TGNConfig, use_kernels, params: dict,
@@ -320,6 +328,7 @@ class _Cohort:
         self.reserve = reserve
         self.pipeline = pl.build_pipeline(cfg, use_kernels=use_kernels,
                                           device=device)
+        self.device = self.pipeline.device
         #: resolved tier: a fused lane and a staged lane of one variant are
         #: two cohorts
         self.tier = self.pipeline.tier
@@ -345,10 +354,75 @@ class _Cohort:
         """Slot ``i``'s (V, ...) rows of the stacked tables (views)."""
         return mailbox.tenant_view(self.state, i, self.cfg.n_nodes)
 
+    def pieces(self, i: int) -> list:
+        """Slot ``i``'s rows where they live: ``[(lo, hi, rows), ...]``,
+        ``rows`` views of the slot's vertex rows ``[lo, hi)``."""
+        return [(0, self.cfg.n_nodes, self.view(i))]
+
+    def read_slot(self, i: int) -> mailbox.VertexState:
+        """A copy of slot ``i``'s (V, ...) rows on the cohort's device."""
+        pieces = self.pieces(i)
+        return mailbox.VertexState(*(
+            torch.cat([p[f].to(self.device) for _, _, p in pieces])
+            for f in range(len(mailbox.VertexState._fields))))
+
+    def write_slot(self, i: int, st: mailbox.VertexState) -> None:
+        """Copy ``st`` into slot ``i``'s rows. A leaf is the (V, ...) rows,
+        or a tuple of the pieces ``slot_shardings`` places."""
+        for j, (lo, hi, rows) in enumerate(self.pieces(i)):
+            for dst, src in zip(rows, st):
+                dst.copy_(src[j] if isinstance(src, tuple) else src[lo:hi])
+
+    def slot_shardings(self, i: int) -> mailbox.VertexState:
+        """Where a restored leaf of slot ``i`` goes
+        (``checkpoint.restore(..., shardings=)``): the cohort's device."""
+        return self._group_shardings([self.device])
+
+    def _group_shardings(self, devices) -> mailbox.VertexState:
+        """A slot's rows split over ``devices`` as the sharding rules
+        split a vertex group's (not at all on one device)."""
+        mesh = tsh.TenantMesh(devices, (tsh.VERTEX_AXIS,))
+        return tsh.make_shardings(mesh, tsh.state_specs(
+            mesh, tgn.init_state(self.cfg, "meta"), stacked=False))
+
+    def lanes(self, feats, scratch: bool = False) -> list:
+        """The cohort's launches, one a shard: ``(first slot, slots,
+        pipeline, step)``; ``step(batch)`` advances those slots (batch
+        rows) in place and returns their BatchOut. ``feats(device)`` gives
+        the session's (edge_feats, node_feats) there. ``scratch``: step a
+        copy of the tables (``peek``)."""
+        ef, nf = feats(self.device)
+        tables = self.state
+        if scratch:
+            tables = mailbox.VertexState(*(t.clone() for t in tables))
+
+        def step(batch):
+            return self.pipeline.batched_step(self.params, self.aux, tables,
+                                              batch, ef, nf)
+
+        return [(0, self.capacity, self.pipeline, step)]
+
+    def finite_slots(self) -> torch.Tensor:
+        """``(capacity,)`` bool on the device, True where every floating
+        table of the slot's V rows is finite. Reduces over the first
+        ``capacity * V`` rows: the scratch row after them is not any
+        tenant's."""
+        cap, V = self.capacity, self.cfg.n_nodes
+        flags = torch.ones((cap,), dtype=torch.bool, device=self.device)
+        for leaf in self.state:
+            if leaf.dtype.is_floating_point:
+                flags &= torch.isfinite(
+                    leaf[:cap * V].reshape(cap, -1)).all(dim=1)
+        return flags
+
+    def _target_capacity(self, n: int) -> int:
+        """Slots for ``n`` tenants: ``n``, or the reserve's class."""
+        return n if self.reserve is None else self.reserve.capacity_for(n)
+
     def _capacity_for(self, n: int) -> int:
         """Slots to lay out for ``n`` tenants; their table rows must be
         addressable by the kernels' int32 ids."""
-        cap = n if self.reserve is None else self.reserve.capacity_for(n)
+        cap = self._target_capacity(n)
         V = self.cfg.n_nodes
         if cap * (V + 1) >= 2 ** 31:
             raise ValueError(
@@ -366,9 +440,13 @@ class _Cohort:
         self.state = mailbox.stack_states(states + [init] * (cap - n), init)
         self.capacity = cap
 
+    def _empty(self) -> None:
+        """Drop the tables (the last tenant left)."""
+        self.state, self.capacity = None, 0
+
     def ensure_capacity(self) -> None:
         """Lay out the reserve capacity with no tenant (a prewarmed lane)."""
-        if self.state is None:
+        if self.capacity == 0:
             self._fit([])
 
     def add(self, tid: str) -> bool:
@@ -377,12 +455,11 @@ class _Cohort:
         n = self.size
         if self.reserve is not None and self.capacity > n:
             # a spare slot freed by a detach holds the departed rows
-            for dst, src in zip(self.view(n), self.pipeline.init_state()):
-                dst.copy_(src)
+            self.write_slot(n, self.pipeline.init_state())
             self.tids.append(tid)
             return False
         self._capacity_for(n + 1)
-        states = [self.view(i) for i in range(n)] + [
+        states = [self.read_slot(i) for i in range(n)] + [
             self.pipeline.init_state()]
         self.tids.append(tid)
         self._fit(states)
@@ -397,25 +474,17 @@ class _Cohort:
         if self.reserve is not None:
             last = len(self.tids) - 1
             if i != last:
-                for dst, src in zip(self.view(i), self.view(last)):
-                    dst.copy_(src)
+                self.write_slot(i, self.read_slot(last))
                 self.tids[i] = self.tids[last]
             self.tids.pop()
             return False
-        keep = [self.view(j) for j in range(self.size) if j != i]
+        keep = [self.read_slot(j) for j in range(self.size) if j != i]
         self.tids.pop(i)
         if not self.tids:
-            self.state, self.capacity = None, 0
+            self._empty()
         else:
             self._fit(keep)
         return True
-
-    def launch(self, stacked_batch: tuple, edge_feats,
-               node_feats) -> tgn.BatchOut:
-        """Advance every slot of the cohort in place, on its own params."""
-        return self.pipeline.batched_step(self.params, self.aux, self.state,
-                                          stacked_batch, edge_feats,
-                                          node_feats)
 
 
 class SessionManager:
@@ -482,6 +551,7 @@ class SessionManager:
         self._next_id = 0
         self.metrics: list[dict] = []
         self._coalesced: pl.CoalescedRound | None = None
+        self._lanes: list = []
         self._stager: _HostStager | None = None
         self._drained: tuple[int, float] | None = None   # summary() cache
         #: what the last add_tenant/remove_tenant did to the layout
@@ -565,6 +635,10 @@ class SessionManager:
     # -- tenant lifecycle ----------------------------------------------
     def _place_params(self, params: dict) -> dict:
         return to_device_tree(params, self.device)
+
+    def _feats(self, device) -> tuple:
+        """The (edge_feats, node_feats) stores on ``device``."""
+        return self.edge_feats, self.node_feats
 
     def register_params(self, name: str, params: dict) -> str:
         """Register a named parameter set (placed on the device, immutable)
@@ -704,15 +778,16 @@ class SessionManager:
         return self._tenant_cohort[tid]
 
     def state_of(self, tid: str) -> mailbox.VertexState:
-        """A copy of the tenant's VertexState (V rows)."""
+        """A copy of the tenant's VertexState (V rows) on the session's
+        device."""
         cohort = self._tenant_cohort[tid]
-        view = cohort.view(cohort.tids.index(tid))
-        return mailbox.VertexState(*(t.clone() for t in view))
+        return cohort.read_slot(cohort.tids.index(tid))
 
     def set_state(self, tid: str, st: mailbox.VertexState) -> None:
+        """Write the tenant's rows where its cohort keeps them (a leaf may
+        be the pieces ``_Cohort.slot_shardings`` placed)."""
         cohort = self._tenant_cohort[tid]
-        for dst, src in zip(cohort.view(cohort.tids.index(tid)), st):
-            dst.copy_(src)
+        cohort.write_slot(cohort.tids.index(tid), st)
 
     def describe(self) -> dict:
         """Cohort layout: variant -> tenants, capacity, parameter set and
@@ -736,9 +811,10 @@ class SessionManager:
 
     # -- the round -----------------------------------------------------
     def _cohort_round(self, cohort: _Cohort, submitted: dict,
-                      on) -> tgn.BatchOut:
+                      scratch: bool = False) -> list:
         """Stack the submitted batches of ``cohort`` (idle slots masked)
-        and advance ``on`` (its tables, or a copy) in one launch."""
+        and advance its tables (or, with ``scratch``, a copy) in one
+        launch a lane. Returns ``[(first slot, slots, BatchOut), ...]``."""
         B = max(d[0].shape[0] for d in submitted.values())
         devs = [(_pad_dev(submitted[tid], B) if tid in submitted
                  else _idle_dev(B, self.device)) for tid in cohort.tids]
@@ -748,9 +824,23 @@ class SessionManager:
         else:
             stacked = tuple(torch.stack([d[j] for d in devs])
                             for j in range(5))
-        return cohort.pipeline.batched_step(cohort.params, cohort.aux, on,
-                                            stacked, self.edge_feats,
-                                            self.node_feats)
+        return [(lo, n, step(tuple(x[lo:lo + n] for x in stacked)))
+                for lo, n, _pipe, step in cohort.lanes(self._feats,
+                                                       scratch=scratch)]
+
+    def _tenant_outs(self, cohort: _Cohort, lane_outs, widths: Mapping,
+                     with_state: bool = False) -> dict:
+        """``{tid: BatchOut}`` of the tenants in ``widths`` (their own
+        batch widths) from a cohort's ``(first slot, slots, BatchOut)``
+        lane outputs."""
+        outs = {}
+        for lo, n, out in lane_outs:
+            for i, tid in enumerate(cohort.tids[lo:lo + n]):
+                if tid in widths:
+                    outs[tid] = self._slice_out(out, i, widths[tid],
+                                                cohort.cfg.n_nodes,
+                                                with_state)
+        return outs
 
     @staticmethod
     def _slice_out(out: tgn.BatchOut, i: int, b: int, V: int,
@@ -771,9 +861,13 @@ class SessionManager:
 
     def _ensure_layout(self, width: int) -> pl.CoalescedRound:
         if self._coalesced is None:
+            #: the round's lanes, aligned with its segments
+            self._lanes = [(c, lo, n, pipe, step)
+                           for c in self._cohorts.values()
+                           for lo, n, pipe, step in c.lanes(self._feats)]
             self._coalesced = pl.CoalescedRound(
-                ((c.pipeline, c.aux, c.capacity)
-                 for c in self._cohorts.values()), obs=self.obs)
+                ((pipe, step, n) for _c, _lo, n, pipe, step in self._lanes),
+                obs=self.obs)
             self.obs.counter("compile.relayouts").inc()
         if self._stager is None or self._stager.rows != self._coalesced.rows:
             if self._stager is not None:
@@ -796,9 +890,8 @@ class SessionManager:
         host = {tid: _as_host_tuple(b) for tid, b in batches.items()}
         width = max(h[0].shape[0] for h in host.values())
         launch = self._ensure_layout(width)
-        cohorts = list(self._cohorts.values())
         offsets, lo = {}, 0
-        for c in cohorts:
+        for c in self._cohorts.values():
             offsets[id(c)] = lo
             lo += c.capacity
         rows, widths = {}, {}
@@ -816,25 +909,19 @@ class SessionManager:
                       rows=len(rows), width=width)
         # each segment steps at its cohort's widest batch (an idle cohort
         # runs a width-1 masked row), the width its own launch would take
-        outs_t, edges = launch(tuple(c.params for c in cohorts),
-                               tuple(c.state for c in cohorts), superbatch,
-                               self.edge_feats, self.node_feats,
-                               widths=tuple(widths.get(id(c), 1)
-                                            for c in cohorts))
+        outs_t, edges = launch(superbatch, widths=tuple(
+            widths.get(id(c), 1) for c, *_ in self._lanes))
         self._stager.note_consumer()
         if trace is not None:
             trace.add("launch", t_launch, trace.clock(), cat="host",
-                      lanes=len(cohorts))
+                      lanes=len(self._lanes))
             _fence(copied)
             trace.add("h2d", t_stage, trace.clock(), cat="device",
                       rows=len(rows))
         outs: dict[str, tgn.BatchOut] = {}
-        for c, out in zip(cohorts, outs_t):
-            c.state = out.state
-            for i, tid in enumerate(c.tids):
-                if tid in host:
-                    outs[tid] = self._slice_out(out, i, host[tid][0].shape[0],
-                                                c.cfg.n_nodes)
+        mine = {tid: h[0].shape[0] for tid, h in host.items()}
+        for (c, lo, n, _p, _s), out in zip(self._lanes, outs_t):
+            outs.update(self._tenant_outs(c, [(lo, n, out)], mine))
         return outs, edges
 
     def _device_staged(self, batches: Mapping) -> bool:
@@ -859,15 +946,13 @@ class SessionManager:
                          for tid in cohort.tids if tid in batches}
             if not submitted:
                 continue
-            out = self._cohort_round(cohort, submitted, cohort.state)
-            cohort.state = out.state
+            lane_outs = self._cohort_round(cohort, submitted)
             launches += 1
-            for i, tid in enumerate(cohort.tids):
-                if tid in submitted:
-                    outs[tid] = self._slice_out(
-                        out, i, submitted[tid][0].shape[0],
-                        cohort.cfg.n_nodes)
-                    edges = edges + submitted[tid][4].sum()
+            outs.update(self._tenant_outs(
+                cohort, lane_outs,
+                {t: d[0].shape[0] for t, d in submitted.items()}))
+            for d in submitted.values():
+                edges = edges + d[4].sum()
         return outs, edges, launches
 
     def step(self, batches: Mapping[str, EdgeBatch | tuple]) -> dict:
@@ -936,10 +1021,9 @@ class SessionManager:
         step."""
         cohort = self._tenant_cohort[tid]
         dev = _as_device_tuple(batch, self.device)
-        copy = mailbox.VertexState(*(t.clone() for t in cohort.state))
-        out = self._cohort_round(cohort, {tid: dev}, copy)
-        return self._slice_out(out, cohort.tids.index(tid), dev[0].shape[0],
-                               cohort.cfg.n_nodes, with_state=True)
+        lane_outs = self._cohort_round(cohort, {tid: dev}, scratch=True)
+        return self._tenant_outs(cohort, lane_outs, {tid: dev[0].shape[0]},
+                                 with_state=True)[tid]
 
     # -- stream driving ------------------------------------------------
     def run(self, streams: Mapping[str, Iterable]):

@@ -26,6 +26,47 @@ class FrozenConfig:
         return dataclasses.asdict(self)
 
 
+def per_tenant(fn, tenants: int, *xs):
+    """``fn(*xs)`` run on each tenant's rows alone: ``xs`` hold ``tenants``
+    equal blocks of rows along their first dimension (None passes
+    through), ``fn`` sees one block of each at a time, and its results
+    (a tensor or a tuple of them) are concatenated along rows.
+
+    A cohort's step must give each tenant's rows the bits they get served
+    alone. On the card a cuBLAS product, and the batched product behind
+    an einsum over rows, picks its algorithm by the row count, so a
+    product over T tenants' rows can round a tenant's rows otherwise; one
+    ``torch.bmm`` over the (T, rows, K) view does too (an H100 run: the
+    same products differ at T = 2 to 16). Run block by block at the solo
+    shape it cannot. A block that does not start on 16 bytes is copied
+    first: a solo run's operands are fresh allocations, and cuBLAS also
+    picks its kernel by alignment. The rest of a step (elementwise ops,
+    gathers, and reductions over a row's own few slots) gives each row
+    the same bits at any row count, and runs over every tenant at once."""
+    if tenants == 1:
+        return fn(*xs)
+
+    def block(x, t):
+        n, rem = divmod(x.shape[0], tenants)
+        if rem:
+            raise ValueError(f"{x.shape[0]} rows do not split into "
+                             f"{tenants} tenants")
+        b = x[t * n:(t + 1) * n]
+        return b if b.data_ptr() % 16 == 0 else b.clone()
+
+    outs = [fn(*(None if x is None else block(x, t) for x in xs))
+            for t in range(tenants)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def tenant_matmul(x, w, tenants: int = 1):
+    """``x @ w``, each of the ``tenants`` blocks of ``x``'s rows multiplied
+    on its own (``per_tenant``)."""
+    return per_tenant(lambda a: a @ w, tenants, x)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Never falls back to the CPU on its own."""

@@ -40,7 +40,7 @@ from repro_torch.serving.admission import AdmissionController
 from repro_torch.serving.cluster import snapshot_tenant
 from repro_torch.serving.faults import (FakeClock, Fault, FaultInjector,
                                         KernelFault)
-from repro_torch.serving.guard import FleetGuard, _finite_lanes
+from repro_torch.serving.guard import FleetGuard
 from repro_torch.serving.journal import EventJournal
 from repro_torch.serving.session import SessionManager
 
@@ -284,9 +284,9 @@ def test_sentinel_quarantines_only_the_poisoned_tenant(small_graph):
     assert cohort.state.memory.shape[0] == cohort.capacity * V + 1
     cohort.state.memory[-1] = float("nan")      # the scratch row
     cohort.state.last_update[-1] = float("inf")
-    assert _finite_lanes(cohort).tolist() == [True] * 4
+    assert cohort.finite_slots().tolist() == [True] * 4
     _poison(mgr, tids[1])
-    assert _finite_lanes(cohort).tolist() == [True, False, True, True]
+    assert cohort.finite_slots().tolist() == [True, False, True, True]
     guard.step({t: rs[i][1] for i, t in enumerate(tids)})
     assert mgr.quarantined == {tids[1]} and guard.quarantines == 1
 

@@ -26,7 +26,7 @@ from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.kernels import ops
 from repro_torch.serving import cluster
 from repro_torch.serving.faults import FakeClock, Fault, FaultInjector
-from repro_torch.serving.guard import FleetGuard, _finite_lanes
+from repro_torch.serving.guard import FleetGuard
 from repro_torch.serving.session import SessionManager
 
 
@@ -110,7 +110,7 @@ def test_sentinel_on_the_card_matches_the_cpu(cuda_device, graph):
             memory=torch.full_like(st.memory, float("nan"))))
         guard = FleetGuard(mgr, clock=FakeClock(), backoff_s=100.0,
                            backoff_cap_s=100.0)
-        flags = _finite_lanes(cohort).cpu().tolist()
+        flags = cohort.finite_slots().cpu().tolist()
         guard._health_check()
         got[device.type] = (flags, sorted(mgr.quarantined))
     assert got["cuda"] == got["cpu"] == ([True, False, True, True], ["t1"])

@@ -130,3 +130,33 @@ def test_sat_logits_rows_do_not_depend_on_the_rows_beside_them(cuda_device,
             part = slice(t * rows, (t + 1) * rows)
             assert torch.equal(full[part],
                                attention.sat_logits(params, dt[part])), (T, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,pset", [("sat+lut+np4", None),
+                                          ("teacher", "teacher")])
+@pytest.mark.parametrize("T", [2, 8])
+def test_ref_cohort_equals_its_solo_runs_bit_for_bit(cuda_device, variant,
+                                                     pset, T):
+    """A ref-tier cohort of T tenants at paper width and B = 200 (T·400
+    rows a product, where cuBLAS picks another algorithm than at 400):
+    each tenant's outputs and state equal its solo run bit for bit,
+    because the ref stages run each tenant's rows on their own."""
+    g = tgd.wikipedia_like(n_edges=T * 3 * 200)
+    dims = dict(n_nodes=g.cfg.n_nodes, n_edges=g.n_edges, f_edge=172,
+                f_mem=100, f_time=100, f_emb=100, m_r=10)
+    lane = (variant, "ref", pset)
+    feeds = _feeds(g, T, rounds=3, B=200)
+    mgr, tids = _fleet(g, dims, cuda_device, [lane] * T)
+    outs = [mgr.step({t: feeds[i][r] for i, t in enumerate(tids)})
+            for r in range(3)]
+    for i, tid in enumerate(tids):
+        sm, (st,) = _fleet(g, dims, cuda_device, [lane])
+        for r in range(3):
+            one = sm.step({st: feeds[i][r]})[st]
+            for name in ("emb_src", "emb_dst", "attn_logits", "nbr_dt"):
+                assert torch.equal(getattr(outs[r][tid], name),
+                                   getattr(one, name)), (i, r, name)
+        for name, a, b in zip(mailbox.VertexState._fields,
+                              mgr.state_of(tid), sm.state_of(st)):
+            assert torch.equal(a, b), (i, name)
