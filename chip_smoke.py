@@ -120,8 +120,27 @@ without them, and on any failed check. In order it:
     the guard's cost a round (bare, guarded at ``check_every = 1``, the
     whole stack); every kernel's launches in the phase checked against
     the tiers' counts;
-13. prints each run's latency/throughput summary;
-14. prints one ``{"kernels": [...]}`` line (with ``fabric_launches`` and
+13. the LM phase (``launch/lm_smoke.py``), after the TGN phases' tensors
+    are freed: every registered architecture at its ``smoke_config()`` on
+    the card against the same weights on the CPU (prefill logits; decode
+    over the prompt and the CPU's 16 greedy tokens, every step's logits,
+    the final caches with ``pos`` and ring ``k_pos`` equal; the MoE
+    archs' ``route`` and dispatch tables equal; gemma3's ring caches
+    wrapping; qwen3's with ``kv_prune_keep`` = 8); then qwen3-8b at its
+    published width and depth (8.19 B fp32 parameters drawn on the card):
+    decode against prefill in fp32 and in bf16, greedy
+    ``lm_serve.generate`` of 4 prompts (8 + 16 tokens) replayed
+    teacher-forced, ms a token eager and from a CUDA graph beside the
+    roofline bound, peak memory, and a 2,048-token prefill through
+    ``chunked_attention`` (4 x 2 blocks) against one block each way,
+    logits and hidden states; qwen3-8b's fp32 decode and chunked prefill
+    also fail unless their limits reject a planted fault (the decode's
+    scores rounded to bf16; the online softmax without its rescale);
+    mamba2-130m and whisper-tiny at ``config()``, decode against prefill
+    in fp32; every tolerance stated in its line (none of it launches a
+    port kernel: the LM path has none);
+14. prints each run's latency/throughput summary;
+15. prints one ``{"kernels": [...]}`` line (with ``fabric_launches`` and
     ``serving_launches``, each kernel's launches in the fabric and
     serving-stack phases) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -135,6 +154,7 @@ The serving phases' weights are random, drawn from a seeded
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -1587,6 +1607,14 @@ def main() -> int:
         row["fleet_launches"] = counts[name]
     fabric = run_fabric(ops, mp, g, dev)
     serving = run_serving_stack(ops, mp, g, dev, card)
+
+    # the LM phase: the TGN phases' device tensors go first (qwen3-8b's
+    # fp32 parameters take 32.8 GB)
+    del runs, engines, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import lm_smoke
+    lm_smoke.run(dev, card)
 
     rows = []
     for name, k in kernels.items():

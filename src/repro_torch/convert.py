@@ -1,12 +1,13 @@
 """Carry weights, state and optimizer state across from the reference
 package.
 
-The reference's parameter tree is nested dicts of arrays; tests hand it
-over as numpy arrays (``np.asarray`` of each leaf) and never pass JAX
-objects into the port. The converters build the port's tensors on a given
-device, and their inverses give numpy back. The optimizer state
-``{"step", "m"[, "v"]}`` converts both ways, so a training run of either
-package continues in the other.
+The reference's parameter trees (the TGN's and the language models') are
+nested dicts of arrays; tests hand them over as numpy arrays (``np.asarray``
+of each leaf) and never pass JAX objects into the port. The converters
+build the port's tensors on a given device, and their inverses give numpy
+back. The optimizer state ``{"step", "m"[, "v"]}`` converts both ways, so a
+training run of either package continues in the other, and so does a
+language model's cache tree, so a decode continues in the other.
 """
 from __future__ import annotations
 
@@ -18,17 +19,27 @@ from repro_torch.training.optim import QTensor
 
 
 def params_from_reference(tree, device) -> dict:
-    """Nested dicts of numpy arrays -> the same dicts of tensors."""
+    """Nested dicts of numpy arrays -> the same dicts of tensors, in the
+    same dtypes (bf16 leaves through their bit pattern)."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree), device=device)
+    return _tensor(tree, device)
 
 
 def params_to_numpy(tree) -> dict:
-    """Inverse of ``params_from_reference``."""
+    """Inverse of ``params_from_reference``, except that bf16 leaves come
+    back as fp32 arrays (numpy has no bf16; fp32 holds every bf16 value
+    exactly)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+#: a language model's cache tree (``pos`` int32 with the reference's shape:
+#: 0-d, or one a stacked block; bf16 or fp32 k/v) converts as parameters do
+lm_caches_from_reference = params_from_reference
+lm_caches_to_numpy = params_to_numpy
 
 
 def state_from_reference(state, device) -> VertexState:
@@ -84,3 +95,4 @@ def opt_state_to_numpy(state: dict) -> dict:
                              else m.dtype).cpu().numpy()
 
     return {k: moment(v) for k, v in state.items()}
+

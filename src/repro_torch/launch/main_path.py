@@ -21,6 +21,9 @@ edges, whose chronological train window is ``TRAIN_STEPS`` batches of
 ``TRAIN_B`` edges: the depth at which chip_smoke trains the teacher and
 distills the student.
 
+``LM_*`` and ``lm_prompts``: the language models' serving path, served
+at full width (``LM_FULL``) and at every architecture's smoke config.
+
 ``fleet_session``: a multi-tenant session on the Wikipedia path (``FLEET``:
 eight tenants on five lanes, the teacher on its own parameter set), on
 one device or on the sharded fabric's mesh (``FABRIC_MESHES``: one card
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import pipeline as pl
@@ -174,3 +178,30 @@ def fleet_feeds(g, n_tenants: int, rounds: int) -> list:
     return [list(stream.fixed_count(g, B, window=slice(i * span,
                                                        (i + 1) * span)))
             for i in range(n_tenants)]
+
+
+# ---------------------------------------------------------------------------
+# the language models' serving path (chip_smoke's LM phase)
+# ---------------------------------------------------------------------------
+
+#: architectures served at their full published width and depth on one
+#: card: qwen3-8b (8.19 B parameters, 32.8 GB in fp32 as stored), and two
+#: that cost seconds: mamba2-130m (SSD at d_state 128, chunk 256) and
+#: whisper-tiny (encoder-decoder with cross K/V)
+LM_FULL = ("qwen3_8b", "mamba2_130m", "whisper_tiny")
+LM_B = 4                     # prompts generate serves at full width
+LM_SMOKE_B = 2               # prompts of the smoke configs, card vs CPU
+LM_PROMPT = 8                # tokens a prompt
+LM_NEW = 16                  # tokens generated after it
+LM_LONG = 2048               # the long prefill (B = 1): 4 q-blocks x 2 k-blocks
+LM_PRUNE_KEEP = 8            # kv_prune_keep of the pruned-decode check
+LM_SEED = 0
+
+
+def lm_prompts(vocab: int, batch: int, n: int = LM_PROMPT,
+               seed: int = LM_SEED) -> torch.Tensor:
+    """``batch`` prompts of ``n`` tokens, uniform over ``vocab``, on the
+    CPU (int32)."""
+    return torch.as_tensor(
+        np.random.RandomState(seed).randint(0, vocab, size=(batch, n)),
+        dtype=torch.int32)

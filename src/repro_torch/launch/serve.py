@@ -1,10 +1,11 @@
 """Serving entry point: stream a synthetic temporal graph through the port
-and report latency/throughput.
+and report latency/throughput, or generate with a language model.
 
-Port of the offline ``--mode tgn`` path of ``repro.launch.serve``. One
-stream is served by the StreamingEngine. With ``--tenants N`` (or
-``--tenant-variants``) the stream is split into N contiguous feeds, one a
-tenant, served by the multi-tenant SessionManager: each round issues every
+Port of ``repro.launch.serve``: ``--mode tgn`` (the default) and ``--mode
+lm``. In ``--mode tgn`` one stream is served by the StreamingEngine. With
+``--tenants N`` (or ``--tenant-variants``) the stream is split into N
+contiguous feeds, one a tenant, served by the multi-tenant
+SessionManager: each round issues every
 cohort's step in one call, each kernel launched once a cohort over all its
 tenants' rows (``--per-cohort``: one launch a cohort, the baseline).
 ``--tenant-params`` puts tenants on named parameter sets (a name maps to
@@ -31,6 +32,11 @@ visible cards and raises when there are too few; with ``--device cpu``
 it takes that many repeats of the CPU. ``--restore`` resumes snapshots
 onto any mesh shape.
 
+``--mode lm`` is the reference's LM serve path: ``--arch``'s smoke config
+(random weights from a seed) generates ``--new-tokens`` tokens after
+``--batch`` prompts of 8 tokens, greedy unless ``--temperature`` > 0, and
+prints the shape and the prefill and decode times.
+
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels fused
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels ref \\
@@ -52,6 +58,9 @@ Examples:
         --mesh tenant=2,vertex=2 --edges 800 --batch 100 --f-mem 16 \\
         --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --arch qwen3_8b --batch 4 --device cpu
+
 ``--variant`` takes any registry name or alias of
 ``repro_torch.core.pipeline`` (``teacher``, ``"+SAT"``, ``"+NP(S)"``,
 ``reservoir``, ...). ``--dataset gdelt`` serves static node features
@@ -66,12 +75,16 @@ import json
 import math
 import zlib
 
+import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.core import tgn
 from repro_torch.core.pipeline import variant_config
 from repro_torch.data import stream, temporal_graph as tgd
 from repro_torch.distributed import tgn_sharding as tsh
+from repro_torch.models import lm_common
+from repro_torch.serving import lm_serve
 from repro_torch.serving.cluster import ShardedSessionManager
 from repro_torch.serving.engine import EngineConfig, StreamingEngine
 from repro_torch.serving.session import DEFAULT_PARAMS, SessionManager
@@ -430,8 +443,33 @@ def run_tgn(args) -> dict:
     return summary
 
 
+def run_lm(args) -> dict:
+    """``--mode lm``: the reference's LM serve path. An ``--arch``'s smoke
+    config with seeded random weights generates ``--new-tokens`` after
+    ``--batch`` prompts of 8 tokens (``RandomState(0)``), greedy unless
+    ``--temperature`` > 0."""
+    device = resolve_device(args.device)
+    cfg = configs.get(args.arch).smoke_config()
+    params = lm_common.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device)
+    prompts = torch.as_tensor(
+        np.random.RandomState(0).randint(0, cfg.vocab, size=(args.batch, 8)),
+        dtype=torch.int32, device=device)
+    out = lm_serve.generate(params, cfg, prompts,
+                            lm_serve.ServeConfig(
+                                max_new_tokens=args.new_tokens,
+                                temperature=args.temperature))
+    print(f"generated {tuple(out['tokens'].shape)}; "
+          f"prefill {out['prefill_s']*1e3:.1f}ms, "
+          f"decode {out['decode_s_per_tok']*1e3:.2f}ms/token")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=("tgn", "lm"), default="tgn",
+                    help="serve the temporal GNN's edge stream (tgn) or "
+                         "generate with a registered language model (lm)")
     ap.add_argument("--dataset", default="wikipedia",
                     choices=tuple(tgd.DATASETS))
     ap.add_argument("--edges", type=int, default=4000)
@@ -527,9 +565,27 @@ def main(argv=None):
     ap.add_argument("--dedup-window", type=int, default=1024,
                     help="per-client window of seqs remembered for "
                          "dedup")
+    ap.add_argument("--arch", default="qwen3_8b",
+                    help="--mode lm: a registered architecture "
+                         "(repro_torch.configs.all_archs()); its smoke "
+                         "config is served")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="--mode lm: tokens generated after the prompt")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="--mode lm: sampling temperature (0: greedy)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        for flag, given in (("--listen", args.listen is not None),
+                            ("--mesh", args.mesh is not None),
+                            ("--slo-ms", args.slo_ms),
+                            ("--trace-out", args.trace_out),
+                            ("--metrics-every", args.metrics_every),
+                            ("--guard", args.guard),
+                            ("--journal-dir", args.journal_dir)):
+            if given:
+                ap.error(f"{flag} is a --mode tgn feature")
     if args.mesh is not None and args.listen is not None:
         ap.error("--mesh serves the offline fleet, not --listen")
     if args.restore and not args.snapshot_dir:
@@ -554,7 +610,7 @@ def main(argv=None):
         ap.error("--journal-fsync-ms must be >= 0")
     if args.dedup_window < 1:
         ap.error("--dedup-window must be >= 1")
-    return run_tgn(args)
+    return (run_tgn if args.mode == "tgn" else run_lm)(args)
 
 
 if __name__ == "__main__":

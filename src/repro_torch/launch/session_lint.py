@@ -7,7 +7,8 @@ asynchronous only if every such call in ``repro_torch/serving/`` and
 ``core/pipeline.py`` sits in a function where a wait is meant (``ALLOWED``,
 each with its reason): the session's sampled ``_fence`` and the guard's
 one read a checked round; off the round, the explicit drains, the
-staging set's reuse gate and a snapshot writer's wait. Any other fence
+staging set's reuse gate, a snapshot writer's wait and the LM
+``generate``'s phase clock. Any other fence
 there is a violation, and so is an allowed function that is gone (a
 rename updates the list).
 
@@ -42,6 +43,8 @@ ALLOWED = {
         "a snapshot writer's wait for its copies, off the round",
     ("serving/engine.py", "StreamingEngine._sync"):
         "the engine's per-batch latency, which ends on the device",
+    ("serving/lm_serve.py", "_clock"):
+        "LM generate's clock, read at a phase's start and end (no round)",
 }
 
 

@@ -1,0 +1,3 @@
+"""The language-model families of the port (serving half): transformer
+(dense and MoE), mamba2, rglru, whisper and vision_lm, with the shared
+layers and MoE blocks."""

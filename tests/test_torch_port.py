@@ -140,6 +140,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "lm = ['repro_torch.models.transformer', 'repro_torch.models.moe',"
+        " 'repro_torch.models.mamba2', 'repro_torch.models.rglru',"
+        " 'repro_torch.models.whisper', 'repro_torch.models.vision_lm',"
+        " 'repro_torch.configs.qwen3_8b', 'repro_torch.serving.lm_serve']\n"
+        "assert all(m in sys.modules for m in lm), lm\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env,
