@@ -139,6 +139,25 @@ without them, and on any failed check. In order it:
     mamba2-130m and whisper-tiny at ``config()``, decode against prefill
     in fp32; every tolerance stated in its line (none of it launches a
     port kernel: the LM path has none);
+13b. the LM-training phase (``launch/lm_train_smoke.py``), in a process
+    of its own under deterministic algorithms (the cuBLAS workspace they
+    need is set in that process only): every architecture's smoke config
+    takes one ``train_loop.make_train_step`` step (AdamW, clip, schedule)
+    on the card and on the CPU from the same weights and batch, loss,
+    every gradient leaf and every updated parameter held to their stated
+    limits (qwen3's also with ``grad_accum = 2`` and ``compress_grads``);
+    mamba2-130m at its published config, uncut, 5 steps of 4 x 2,048 with
+    every loss, gradient and parameter finite, the first loss within 2 of
+    ln(vocab), the first batch's rows at 1 x 256 against the CPU in bf16
+    and fp32, and the reference's unmasked SSD exponent planted, which
+    must make the gradients non-finite; qwen3-8b at its published width
+    with 4 of its 36 layers (2.016 B parameters): the first gradients with
+    ``attn_remat`` on and off (bitwise) and in one attention block against
+    8 x 4 (the planted no-rescale rejected), 3 steps with each
+    ``attn_remat`` (bitwise), a 24.2 GB checkpoint after step 2 restored
+    and its step 3 bitwise, ms a step, tokens/s and peak memory beside the
+    roofline bound; ``launch/train.py --mode lm`` killed after its step-3
+    checkpoint and rerun, its final state bitwise an uninterrupted run's;
 14. prints each run's latency/throughput summary;
 15. prints one ``{"kernels": [...]}`` line (with ``fabric_launches`` and
     ``serving_launches``, each kernel's launches in the fabric and
@@ -184,6 +203,7 @@ FLEET_TENANTS = 8
 FLEET_SWEEP = (1, 2, 4, 8, 16)
 FABRIC_PAIRS = 24            # paired rounds timing a mesh against one device
 CPU_STEPS = 3                # training steps held to the CPU's
+LM_TRAIN_TIMEOUT_S = 700     # the LM-training phase's process (~260 s)
 # the card's and the CPU's losses: fp32 sums in other orders (and atomic
 # scatters in the card's backward), three chained AdamW steps
 STEP_LOSS_RTOL = 1e-4
@@ -1523,6 +1543,28 @@ def run_training(ops, mp, g_full, dev) -> None:
                           TT._dt_samples(g, train_sl))
 
 
+def run_lm_training(card: str) -> None:
+    """The LM-training phase, ``python -m repro_torch.launch.lm_train_smoke``
+    in a process of its own: its deterministic cuBLAS needs a fixed
+    workspace (``CUBLAS_WORKSPACE_CONFIG``) set before CUDA starts, and
+    the earlier phases run without it. This process's cached blocks are
+    released first; its lines stream to this output."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm train phase: in its own process (this one keeps "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); on "
+          f"{card}", flush=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    src = os.path.join(ROOT, "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.lm_train_smoke"],
+        env=env, cwd=ROOT, timeout=LM_TRAIN_TIMEOUT_S)
+    check(proc.returncode == 0, f"the LM-training phase (exit code "
+          f"{proc.returncode})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1615,6 +1657,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.launch import lm_smoke
     lm_smoke.run(dev, card)
+    run_lm_training(card)
 
     rows = []
     for name, k in kernels.items():

@@ -6,8 +6,9 @@ nested dicts of arrays; tests hand them over as numpy arrays (``np.asarray``
 of each leaf) and never pass JAX objects into the port. The converters
 build the port's tensors on a given device, and their inverses give numpy
 back. The optimizer state ``{"step", "m"[, "v"]}`` converts both ways, so a
-training run of either package continues in the other, and so does a
-language model's cache tree, so a decode continues in the other.
+training run of either package continues in the other. A language model's
+cache tree (``pos`` int32 with the reference's shape, bf16 or fp32 k/v)
+converts as parameters do, so a decode continues in the other.
 """
 from __future__ import annotations
 
@@ -34,12 +35,6 @@ def params_to_numpy(tree) -> dict:
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-
-
-#: a language model's cache tree (``pos`` int32 with the reference's shape:
-#: 0-d, or one a stacked block; bf16 or fp32 k/v) converts as parameters do
-lm_caches_from_reference = params_from_reference
-lm_caches_to_numpy = params_to_numpy
 
 
 def state_from_reference(state, device) -> VertexState:

@@ -44,7 +44,8 @@ from repro_torch import configs, tree
 from repro_torch.core import perf_model
 from repro_torch.launch import main_path as mp
 from repro_torch.models import layers as L
-from repro_torch.models import lm_common, moe as M, transformer, whisper
+from repro_torch.models import lm_common, mamba2, moe as M, transformer
+from repro_torch.models import whisper
 from repro_torch.serving import lm_serve
 from repro_torch.utils import resolve_device
 
@@ -65,33 +66,41 @@ TOL_FULL_F32 = dict(rtol=1e-4, atol=1e-4)
 TOL_FULL_BF16 = dict(rtol=0.0, atol=0.25)
 
 
-#: faults planted into a second run of qwen3-8b's full-width comparisons
-#: (the fp32 decode and the chunked prefill fail unless their limits
-#: reject them): the decode's attention scores rounded to bf16 (they are
-#: fp32 in the reference), and
-#: the chunked attention's online softmax without the rescale of its
-#: running sums to a new max (the running max is raised before the step,
-#: so the step's ``alpha`` is 1)
+#: faults planted into a second run of a full-width comparison, each
+#: ``(module, function, wrap)``; the run fails unless the comparison's
+#: limit rejects the fault. qwen3-8b's serving: the decode's attention
+#: scores rounded to bf16 (they are fp32 in the reference), and the
+#: chunked attention's online softmax without the rescale of its running
+#: sums to a new max (the running max is raised before the step, so the
+#: step's ``alpha`` is 1), which ``launch/lm_train_smoke.py`` also plants
+#: into qwen3-8b's gradients; mamba2-130m's training: the reference's
+#: intra-chunk decay, ``exp`` of every pair's exponent masked afterwards,
+#: which overflows above the diagonal at chunk 256 and makes the
+#: backward's gradients NaN
 PLANTS = {
-    "bf16 scores": ("_softcap",
+    "bf16 scores": (L, "_softcap",
                     lambda f: lambda s, cap: f(s, cap).bfloat16().float()),
-    "no rescale": ("_online_softmax_step",
+    "no rescale": (L, "_online_softmax_step",
                    lambda f: lambda m, l, acc, s, v: f(
                        torch.maximum(m, torch.amax(s, dim=-1)), l, acc, s,
                        v)),
+    "unmasked exponent": (
+        mamba2, "_intra_decay",
+        lambda f: lambda lt, causal: torch.where(
+            causal, torch.exp(lt[:, :, :, None] - lt[:, :, None, :]), 0.0)),
 }
 
 
 @contextlib.contextmanager
 def planted(fault: str):
-    """``PLANTS[fault]`` in place of its function of ``models.layers``."""
-    name, wrap = PLANTS[fault]
-    sound = getattr(L, name)
-    setattr(L, name, wrap(sound))
+    """``PLANTS[fault]`` in place of its function."""
+    mod, name, wrap = PLANTS[fault]
+    sound = getattr(mod, name)
+    setattr(mod, name, wrap(sound))
     try:
         yield
     finally:
-        setattr(L, name, sound)
+        setattr(mod, name, sound)
 
 
 def check(ok: bool, what: str) -> None:

@@ -23,6 +23,7 @@ distills the student.
 
 ``LM_*`` and ``lm_prompts``: the language models' serving path, served
 at full width (``LM_FULL``) and at every architecture's smoke config.
+``LM_TRAIN_*``: their training path (``launch/lm_train_smoke.py``).
 
 ``fleet_session``: a multi-tenant session on the Wikipedia path (``FLEET``:
 eight tenants on five lanes, the teacher on its own parameter set), on
@@ -196,6 +197,29 @@ LM_NEW = 16                  # tokens generated after it
 LM_LONG = 2048               # the long prefill (B = 1): 4 q-blocks x 2 k-blocks
 LM_PRUNE_KEEP = 8            # kv_prune_keep of the pruned-decode check
 LM_SEED = 0
+
+
+#: the training path: one step of every smoke config at B x S tokens (B
+#: even, so grad_accum = 2 splits it), lr 1e-3, taken at step 1 of a
+#: one-step warmup (at step 0 the schedule's scale is 0)
+LM_TRAIN_SEED = 0
+LM_TRAIN_B, LM_TRAIN_S = 4, 32
+LM_TRAIN_LR = 1e-3
+#: mamba2-130m at its published config, uncut (24 layers, d_model 768,
+#: vocab 50,280, chunk 256): 5 steps of B x S, and the first step's loss
+#: and gradients at B x S = 1 x 256 against the CPU
+LM_TRAIN_MAMBA = dict(arch="mamba2_130m", batch=4, seq=2048, steps=5,
+                      cpu_batch=1, cpu_seq=256)
+#: qwen3-8b at its published width, its 36 layers cut to 4 (2.016 B
+#: parameters; with AdamW's fp32 moments and the gradients 32.3 GB
+#: resident): 3 steps of B x S = 1 x 4,096, 8 x 4 query x key blocks and 8
+#: loss chunks, checkpointed after step 2
+LM_TRAIN_QWEN = dict(arch="qwen3_8b", n_layers=4, batch=1, seq=4096,
+                     steps=3, ckpt_after=2)
+#: ``launch/train.py --mode lm`` killed once its step-3 checkpoint is
+#: written and rerun, against an uninterrupted run
+LM_TRAIN_CLI = dict(arch="qwen3_8b", steps=6, ckpt_every=3, batch=8,
+                    seq=64)
 
 
 def lm_prompts(vocab: int, batch: int, n: int = LM_PROMPT,

@@ -7,6 +7,7 @@ device's idle share, per kernel tier.
     PYTHONPATH=src python -m repro_torch.launch.profile --variant ladder
     PYTHONPATH=src python -m repro_torch.launch.profile --train
     PYTHONPATH=src python -m repro_torch.launch.profile --fleet
+    PYTHONPATH=src python -m repro_torch.launch.profile --lm-train
     PYTHONPATH=src python -m repro_torch.launch.profile --sat-logits
     PYTHONPATH=src python -m repro_torch.launch.profile --peek
 
@@ -44,8 +45,12 @@ on the Wikipedia path: each form alone at the path's input (2B x m_r),
 device ops and device us a call (traced) and host us a call; then each
 tier's step traced with each form in turn, twice. ``--peek`` times the engine's
 ``step_on_device`` (a step on a copy of the tables) against ``process``
-on the same batches and state, per tier, host clock, synchronized. Needs
-a CUDA device.
+on the same batches and state, per tier, host clock, synchronized.
+``--lm-train`` traces language-model training steps at chip_smoke's
+shapes (``main_path.LM_TRAIN_MAMBA``, ``LM_TRAIN_QWEN``): mamba2-130m
+uncut at 4 x 2,048 and qwen3-8b at full width with 4 layers at 1 x
+4,096, each warmed up for one step and traced for ``LM_STEPS``, under
+deterministic algorithms as ``--mode lm`` runs. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from repro_torch.utils import resolve_device
 WARMUP = 10
 STEPS = 20
 TOP = 12
+LM_STEPS = 2
 #: the port's kernel functions (kernels/csrc), as the profiler names them
 PORT_KERNELS = ("lut_encode_kernel", "gru_cell_kernel",
                 "sat_aggregate_kernel", "fused_muu_kernel", "fused_eu_kernel",
@@ -102,9 +108,10 @@ def profile_tier(path, tier, cfg, params, g, device):
     report(f"{path} {tier}", prof, wall_ms, launches)
 
 
-def report(name, prof, wall_ms, launches) -> None:
+def report(name, prof, wall_ms, launches, steps: int = STEPS) -> None:
     """Print a traced window's per-step wall and device-busy time, idle
-    share, device ops, the top kernels and the port's kernels."""
+    share, device ops, the top kernels and the port's kernels, over
+    ``steps`` traced steps."""
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
@@ -114,19 +121,19 @@ def report(name, prof, wall_ms, launches) -> None:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     busy_ms = busy_us((e.time_range.start, e.time_range.end)
-                      for e in events) / 1e3 / STEPS
+                      for e in events) / 1e3 / steps
     print(f"profile {name}: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(events) / STEPS:.1f} device ops/step, {launches:g} port "
+          f"{len(events) / steps:.1f} device ops/step, {launches:g} port "
           f"kernel launches/step", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for kname, (n, us) in ranked[:TOP]:
-        print(f"  {us / STEPS:9.2f} us/step  {n / STEPS:5.1f}x  {kname[:90]}")
+        print(f"  {us / steps:9.2f} us/step  {n / steps:5.1f}x  {kname[:90]}")
     port = collections.defaultdict(float)
     for kname, (_, us) in by_name.items():
         m = re.search("|".join(PORT_KERNELS), kname)
         if m:
-            port[m.group(0)] += us / STEPS
+            port[m.group(0)] += us / steps
     print(f"profile {name}: port kernels us/step "
           f"{ {k: round(v, 2) for k, v in sorted(port.items())} }",
           flush=True)
@@ -178,6 +185,46 @@ def profile_training(device) -> None:
                 torch.cuda.synchronize()
                 wall += time.perf_counter() - t0
         report(f"train {name}", prof, wall * 1e3 / STEPS, 0)
+
+
+def profile_lm_training(device) -> None:
+    """Training steps of mamba2-130m and of qwen3-8b (4 layers) at the
+    LM-training phase's shapes, traced."""
+    from repro_torch import configs
+    from repro_torch.launch import lm_train_smoke as LTS
+    from repro_torch.models import lm_common
+    from repro_torch.training import train_loop as TL
+    from repro_torch.utils import deterministic
+
+    qwen = main_path.LM_TRAIN_QWEN
+    runs = ((configs.get(main_path.LM_TRAIN_MAMBA["arch"]).config(),
+             main_path.LM_TRAIN_MAMBA),
+            (configs.get(qwen["arch"]).config().replace(
+                n_layers=qwen["n_layers"], remat="nothing"), qwen))
+    with deterministic():
+        for cfg, spec in runs:
+            B, S = spec["batch"], spec["seq"]
+            params = lm_common.init_params(
+                torch.Generator(device=device).manual_seed(0), cfg, device)
+            tcfg = LTS.lm_step_config(LM_STEPS + 1)
+            step = TL.make_train_step(
+                lambda p, b, c=cfg: lm_common.loss_fn(p, c, b), tcfg)
+            opt = TL.init_train_state(tcfg, params)
+            batches = [LTS.batch_on(cfg, i, B, S, device)
+                       for i in range(LM_STEPS + 1)]
+            params, opt, _ = step(params, opt, batches[0], 1)
+            torch.cuda.synchronize()
+            wall = 0.0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(1, LM_STEPS + 1):
+                    t0 = time.perf_counter()
+                    params, opt, _ = step(params, opt, batches[i], i + 1)
+                    torch.cuda.synchronize()
+                    wall += time.perf_counter() - t0
+            report(f"lm train {cfg.arch} B x S = {B} x {S}", prof,
+                   wall * 1e3 / LM_STEPS, 0, steps=LM_STEPS)
+            del params, opt, batches, prof
+            torch.cuda.empty_cache()
 
 
 def profile_fleet(device) -> None:
@@ -319,8 +366,13 @@ def main(argv=None):
                          "matmul, slot sum)")
     ap.add_argument("--peek", action="store_true",
                     help="time step_on_device against process")
+    ap.add_argument("--lm-train", action="store_true",
+                    help="trace language-model training steps instead")
     args = ap.parse_args(argv)
     device = resolve_device()
+    if args.lm_train:
+        profile_lm_training(device)
+        return
     if args.sat_logits or args.peek:
         if args.sat_logits:
             profile_sat_logits(device)

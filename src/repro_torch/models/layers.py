@@ -14,6 +14,11 @@ Conventions, as in the reference:
 Every product is a torch matmul or einsum on the same operands and dtypes
 as the reference's, so the port computes what it computes, op for op.
 
+Training: ``remat`` is the port's ``jax.checkpoint`` (a non-reentrant
+``torch.utils.checkpoint``; ``"dots"`` saves only the products), and
+``chunked_xent`` the families' sequence-chunked cross-entropy. Both run
+their functions plainly when autograd is off (serving).
+
 KV caches are written IN PLACE: ``decode_attention`` (and ``attention``
 with a cache) copies the new keys and values into the cache's tensors at
 its device-side ``pos`` (``index_copy_``, no host sync), advances ``pos``
@@ -25,10 +30,12 @@ assert on the card), and generation never reaches one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 NEG_INF = -2.3819763e38  # max bf16-representable negative; avoids inf-inf NaNs
 
@@ -41,7 +48,10 @@ NEG_INF = -2.3819763e38  # max bf16-representable negative; avoids inf-inf NaNs
 def _normal(generator: torch.Generator, shape, std: float, device
             ) -> torch.Tensor:
     """N(0, std²) drawn leaf by leaf on the generator's device, then moved
-    to ``device`` (no copy when they are the same)."""
+    to ``device`` (no copy when they are the same). On the ``meta`` device
+    nothing is drawn: the leaf has only its shape and dtype."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     out = torch.empty(tuple(shape), dtype=torch.float32,
                       device=generator.device)
     out.normal_(0.0, std, generator=generator)
@@ -67,6 +77,45 @@ def embed_init(generator: torch.Generator, shape, device, *,
 def zeros(shape, device, stack: tuple = ()) -> torch.Tensor:
     return torch.zeros(tuple(stack) + tuple(shape), dtype=torch.float32,
                        device=device)
+
+
+#: the products ``remat="dots"`` keeps for the backward (the reference's
+#: ``dots_with_no_batch_dims_saveable``); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, mode: str = "nothing"):
+    """``fn`` whose activations the backward recomputes, the port of
+    ``jax.checkpoint``: ``"nothing"`` saves only its inputs, ``"dots"``
+    also the outputs of its matrix products, ``"none"`` is ``fn`` itself.
+    Without autograd (serving) ``fn`` runs as it is."""
+    if mode == "none":
+        return fn
+    if mode not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        if mode == "dots":
+            kwargs["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return wrapped
+
+
+def block_remat(fn, cfg):
+    """``fn`` under ``remat``'s "nothing" (the reference's
+    ``nothing_saveable``) unless ``cfg.remat`` is "none": the recurrent,
+    encoder-decoder and vision families checkpoint their blocks so for any
+    other setting."""
+    return remat(fn, "none" if cfg.remat == "none" else "nothing")
 
 
 def block_view(tree, b: int):
@@ -463,15 +512,20 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
                       kv_x: torch.Tensor | None = None,
                       kv_positions: torch.Tensor | None = None,
                       causal: bool = True, q_block: int = 512,
-                      k_block: int = 1024) -> torch.Tensor:
+                      k_block: int = 1024,
+                      remat_qblocks: bool = False) -> torch.Tensor:
     """Flash-style attention: a loop over query blocks, an online softmax
     over key blocks. Peak live buffer is O(q_block * k_block) instead of
     O(S^2).
 
+    ``remat_qblocks`` (the reference's §Perf H1): each query block's key
+    loop runs under ``remat``, so the backward recomputes its scores
+    instead of keeping every key step's fp32 scores; the values and
+    gradients are the same.
+
     For sliding-window layers the key range per query block is exactly
     ``q_block + window`` wide, one slice — compute scales with the window,
-    not the sequence. (The reference's backward remat of the query blocks
-    belongs to training.)
+    not the sequence.
     """
     B, S, D = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -532,9 +586,8 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
             blocks.append(o.reshape(B, qb, h, hd))
     else:
         n_k = Sk // kb
-        for i in range(n_q):
-            qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, kv, g, hd)
-            qpos_i = positions[:, i * qb:(i + 1) * qb]
+
+        def q_inner(qi, qpos_i, k_, v_, kpos_, ok_):
             m = torch.full((B, kv, g, qb), -math.inf, dtype=torch.float32,
                            device=dev)
             l = torch.zeros((B, kv, g, qb), dtype=torch.float32, device=dev)
@@ -542,11 +595,18 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
                               device=dev)
             for j in range(n_k):
                 sl = slice(j * kb, (j + 1) * kb)
-                s = score_block(qi, k[:, sl], qpos_i, k_pos[:, sl],
-                                kv_ok[sl])                 # (B,kv,g,qb,kb)
-                m, l, acc = _online_softmax_step(m, l, acc, s, v[:, sl])
+                s = score_block(qi, k_[:, sl], qpos_i, kpos_[:, sl],
+                                ok_[sl])                   # (B,kv,g,qb,kb)
+                m, l, acc = _online_softmax_step(m, l, acc, s, v_[:, sl])
             o = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,kv,g,qb,hd)
-            blocks.append(torch.movedim(o, 3, 1).reshape(B, qb, h, hd))
+            return torch.movedim(o, 3, 1).reshape(B, qb, h, hd)
+
+        if remat_qblocks:
+            q_inner = remat(q_inner)
+        for i in range(n_q):
+            qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, kv, g, hd)
+            qpos_i = positions[:, i * qb:(i + 1) * qb]
+            blocks.append(q_inner(qi, qpos_i, k, v, k_pos, kv_ok))
 
     out = torch.cat(blocks, dim=1).reshape(B, S, h * hd)
     return _out_proj(p, out[:, :S_orig], dt)
@@ -596,7 +656,9 @@ def init_embed(generator: torch.Generator, vocab: int, d: int, device
 def embed(p: dict, tokens: torch.Tensor, dtype=torch.bfloat16
           ) -> torch.Tensor:
     # gather, then cast: the same bits as the reference's cast-then-gather,
-    # without casting the whole table every token
+    # without casting the whole table every token. In bf16 the backward
+    # sums a token's repeated rows in fp32, where the reference sums them
+    # in bf16 (tests/test_torch_lm_train_io.py holds it to a bf16 limit)
     return p["embed"][tokens.long()].to(dtype)
 
 
@@ -608,3 +670,36 @@ def init_unembed(generator: torch.Generator, d: int, vocab: int, device
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     # logits in fp32 for a numerically-stable softmax/cross-entropy
     return (x @ p["unembed"].to(x.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def _xent_sum(hi: torch.Tensor, ti: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """Summed next-token cross-entropy of one sequence chunk, fp32."""
+    logits = (hi @ w.to(hi.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ti[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                 loss_chunk: int) -> torch.Tensor:
+    """Mean next-token cross-entropy of hidden states ``h`` (B, S, D)
+    through the unembedding ``w`` (D, V), the families' ``loss_fn`` tail:
+    the sequence in chunks of ``loss_chunk``, each chunk's fp32 logits
+    recomputed in the backward (the reference's ``jax.checkpoint(step)``),
+    so no (B, S, V) tensor is ever kept. The chunk sums are added in order
+    from zero; as in the reference, a remainder of S past the last whole
+    chunk is left out of the sum but not of the mean's count."""
+    B, S, _ = h.shape
+    chunk = min(loss_chunk, S)
+    step = remat(_xent_sum)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + step(h[:, sl], targets[:, sl], w)
+    return total / (B * S)

@@ -1,22 +1,28 @@
 """Mamba-2 (SSD — state-space duality, arXiv:2405.21060) language model, the
-port of ``repro.models.mamba2`` (serving half).
+port of ``repro.models.mamba2``.
 
 The SSD layer computes, per head h with scalar decay A_h < 0:
 
     state_t = exp(dt_t A) state_{t-1} + dt_t B_t x_t^T        (P x N outer)
     y_t     = C_t . state_t + D x_t
 
-Prefill uses the chunked block-decomposition (the "duality"): sequences are
-split into chunks of Q tokens; within a chunk the quadratic form
-(C_t.B_s) exp(l_t - l_s) dt_s runs like attention, across chunks a loop
-carries the (B, H, P, N) state. Because A < 0 and dt > 0 every exponent is
-<= 0 — all decays live in (0, 1].
+Training and prefill use the chunked block-decomposition (the "duality"):
+sequences are split into chunks of Q tokens; within a chunk the quadratic
+form (C_t.B_s) exp(l_t - l_s) dt_s runs like attention, across chunks a
+loop carries the (B, H, P, N) state. Because A < 0 and dt > 0 every
+exponent that is kept is <= 0 — all decays live in (0, 1]. The pairs
+above the diagonal (s > t) are masked, and their exponents are positive
+sums of up to Q - 1 terms; the reference takes their ``exp`` and masks
+the result, which overflows to inf at Q = 256 and turns the backward's
+zero cotangent times inf into NaN. The port masks the exponent first
+(``_intra_decay``): the same values, finite gradients.
 
 Decode is the O(1) recurrence.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +146,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out, new_state
 
 
+def _intra_decay(lt: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+    """exp(l_t - l_s) for t >= s and 0 above the diagonal, from the chunk's
+    cumulative log-decays ``lt`` (B,H,Q): (B,H,Q,Q). The exponent is masked
+    before the ``exp`` (bitwise the reference's masked ``exp`` where that
+    is finite), so no pair overflows and the backward stays finite."""
+    diff = lt[:, :, :, None] - lt[:, :, None, :]
+    return torch.exp(torch.where(causal, diff, -math.inf))
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
                 h0: torch.Tensor | None = None):
@@ -172,9 +187,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         # intra-chunk quadratic form
         scores = torch.einsum("bqhn,bshn->bhqs", ch, bh)
         lt = l.permute(0, 2, 1)                      # (B,H,Q)
-        decay = torch.exp(lt[:, :, :, None] - lt[:, :, None, :])
+        decay = _intra_decay(lt, causal)
         dt_s = dt_c.permute(0, 2, 1)[:, :, None, :]  # (B,H,1,Q) dt at s
-        w = scores * torch.where(causal, decay, 0.0) * dt_s  # (B,H,Q,Q)
+        w = scores * decay * dt_s                    # (B,H,Q,Q)
         y_intra = torch.einsum("bhqs,bshp->bqhp", w, x_c)
 
         # state carry
@@ -255,9 +270,21 @@ def _layer_fwd(lp: dict, cfg: MambaConfig, x: torch.Tensor,
 def backbone(params: dict, cfg: MambaConfig, tokens: torch.Tensor
              ) -> torch.Tensor:
     x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+
+    def body(lp, x):
+        return _layer_fwd(lp, cfg, x)[0]
+
+    body = L.block_remat(body, cfg)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer_fwd(L.block_view(params["layers"], i), cfg, x)
+        x = body(L.block_view(params["layers"], i), x)
     return L.rmsnorm(params["final_norm"], x)
+
+
+def loss_fn(params: dict, cfg: MambaConfig, tokens: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    h = backbone(params, cfg, tokens)
+    return L.chunked_xent(h, params["head"]["unembed"], targets,
+                          cfg.loss_chunk)
 
 
 def init_caches(cfg: MambaConfig, batch: int, max_len: int,

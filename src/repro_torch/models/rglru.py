@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local
-attention, the port of ``repro.models.rglru`` (serving half).
+attention, the port of ``repro.models.rglru``.
 
 Layer pattern is (rec, rec, attn) repeating (1 attention : 2 recurrent), with
 MQA sliding-window attention (window 2048). 38 layers = 12 stacked triples +
@@ -11,12 +11,13 @@ RG-LRU (arXiv:2402.19427):
     a_t = exp(-c * softplus(Lambda) * r_t),  c = 8
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The reference evaluates the prefill recurrence with
+The reference evaluates the training and prefill recurrence with
 ``lax.associative_scan``; torch has no public equivalent, so ``rglru_scan``
 runs it as a sequential fp32 loop over the sequence. The two associate the
 products in another order, so they agree to fp32 rounding, not bit for
-bit. Decode is the O(1) elementwise step. Gate matrices are block-diagonal
-(n_heads blocks).
+bit. Autograd differentiates the loop exactly, a step at a time, so its
+backward is slow at long sequences. Decode is the O(1) elementwise step.
+Gate matrices are block-diagonal (n_heads blocks).
 """
 from __future__ import annotations
 
@@ -233,13 +234,26 @@ def backbone(params: dict, cfg: GriffinConfig, tokens: torch.Tensor
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(params, cfg, tokens)
-    for b in range(cfg.n_full_blocks):
-        bp = L.block_view(params["blocks"], b)
+
+    def body(bp, x):
         for i, kind in enumerate(cfg.pattern):
             x = _layer_fwd(bp[f"l{i}"], cfg, kind, x, positions)
+        return x
+
+    # the reference checkpoints the scanned blocks, not the tail
+    body = L.block_remat(body, cfg)
+    for b in range(cfg.n_full_blocks):
+        x = body(L.block_view(params["blocks"], b), x)
     for i, kind in enumerate(cfg.tail):
         x = _layer_fwd(params["tail"][f"l{i}"], cfg, kind, x, positions)
     return L.rmsnorm(params["final_norm"], x)
+
+
+def loss_fn(params: dict, cfg: GriffinConfig, tokens: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    h = backbone(params, cfg, tokens)
+    return L.chunked_xent(h, params["head"]["unembed"], targets,
+                          cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------------

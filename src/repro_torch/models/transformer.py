@@ -1,5 +1,6 @@
 """Decoder-only LM family: dense GQA transformers and MoE transformers, the
-port of ``repro.models.transformer`` (serving half: init, prefill, decode).
+port of ``repro.models.transformer``: init, the training loss, prefill and
+decode.
 
 Covers gemma3-12b (5:1 local:global sliding-window pattern, RoPE-scaled
 globals), mistral-nemo-12b, granite-3-8b, qwen3-8b (qk-norm), dbrx-132b
@@ -10,8 +11,10 @@ per-block parameter trees and caches are stacked along a leading axis, as
 in the reference. The forward loops over the blocks through views of the
 stacked leaves, and decode writes each block's new keys and values into
 the stacked caches in place (the reference's ``decode_unroll`` form; its
-scanned form computes the same). The reference's sharding constraints are
-identities on one device and are left out.
+scanned form computes the same). Each block body runs under ``_remat``
+(the reference's ``jax.checkpoint`` of the scan body, policy ``remat``).
+The reference's sharding constraints are identities on one device and are
+left out.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ class LMConfig(FrozenConfig):
     capacity_factor: float = 1.25
     # execution
     dtype: str = "bfloat16"
-    remat: str = "nothing"                  # training (not in this port yet)
-    attn_remat: bool = False                # training (not in this port yet)
+    remat: str = "nothing"                  # "nothing" | "dots" | "none"
+    attn_remat: bool = False                # §Perf H1: flash-style bwd remat
     decode_upcast: bool = True              # §Perf O4 off = no fp32 cache copy
     kv_prune_keep: int = 0                  # §Perf O2: >0 = positional KV prune
     decode_unroll: bool = False             # §Perf O5; the port always loops
@@ -160,8 +163,22 @@ def _layer_fwd(lp: dict, cfg: LMConfig, kind: str, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(lp["ln1"], x)
     x = x + L.chunked_attention(lp["attn"], cfg.attn_cfg(kind), h, positions,
-                                q_block=cfg.q_block, k_block=cfg.k_block)
+                                q_block=cfg.q_block, k_block=cfg.k_block,
+                                remat_qblocks=cfg.attn_remat)
     return x + _ffn(lp, cfg, L.rmsnorm(lp["ln2"], x))
+
+
+def _block_fwd(bp: dict, cfg: LMConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    for i, kind in enumerate(cfg.pattern):
+        x = _layer_fwd(bp[f"l{i}"], cfg, kind, x, positions)
+    return x
+
+
+def _remat(fn, cfg: LMConfig):
+    """``fn`` under the config's remat policy: ``"nothing"`` saves only a
+    block's input, ``"dots"`` also its products, ``"none"`` everything."""
+    return L.remat(fn, cfg.remat)
 
 
 def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor
@@ -180,11 +197,21 @@ def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(params, cfg, tokens)
+    body = _remat(_block_fwd, cfg)
     for b in range(cfg.n_blocks):
-        bp = L.block_view(params["blocks"], b)
-        for i, kind in enumerate(cfg.pattern):
-            x = _layer_fwd(bp[f"l{i}"], cfg, kind, x, positions)
+        x = body(L.block_view(params["blocks"], b), cfg, x, positions)
     return L.rmsnorm(params["final_norm"], x)
+
+
+def loss_fn(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, vocab-chunk-safe: the loss runs over
+    sequence chunks, each chunk's fp32 logits recomputed in the backward,
+    so the (B, S, V) logits never fully materialize."""
+    h = backbone(params, cfg, tokens)
+    assert h.shape[1] % min(cfg.loss_chunk, h.shape[1]) == 0
+    return L.chunked_xent(h, params["head"]["unembed"], targets,
+                          cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------------

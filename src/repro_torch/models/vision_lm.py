@@ -1,6 +1,6 @@
 """Llama-3.2-Vision-style backbone: text decoder with gated cross-attention
 image layers every 5th layer (vision frontend stubbed), the port of
-``repro.models.vision_lm`` (serving half).
+``repro.models.vision_lm``.
 
 Only the transformer BACKBONE is modeled: the caller provides precomputed
 patch embeddings (B, n_patches, D). Self layers are llama-3.1 GQA + SwiGLU;
@@ -126,11 +126,23 @@ def backbone(params: dict, cfg: VisionLMConfig, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = L.embed(params["embed"], tokens, cfg.compute_dtype)
-    for b in range(cfg.n_blocks):
-        bp = L.block_view(params["blocks"], b)
+
+    def body(bp, x):
         for i, kind in enumerate(cfg.pattern):
             x = _layer_fwd(bp[f"l{i}"], cfg, kind, x, positions, vision)
+        return x
+
+    body = L.block_remat(body, cfg)
+    for b in range(cfg.n_blocks):
+        x = body(L.block_view(params["blocks"], b), x)
     return L.rmsnorm(params["final_norm"], x)
+
+
+def loss_fn(params: dict, cfg: VisionLMConfig, tokens: torch.Tensor,
+            vision: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    h = backbone(params, cfg, tokens, vision)
+    return L.chunked_xent(h, params["head"]["unembed"], targets,
+                          cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder backbone (audio frontend stubbed), the port
-of ``repro.models.whisper`` (serving half).
+of ``repro.models.whisper``.
 
 The conv frontend is a STUB: the encoder consumes precomputed mel-frame
 embeddings (B, n_frames, D) directly (adding sinusoidal positions).
@@ -107,14 +107,18 @@ def encode(params: dict, cfg: WhisperConfig, frames: torch.Tensor
     dt = cfg.compute_dtype
     x = frames.to(dt) + _sinusoid(S, D, frames.device).to(dt)
     positions = torch.arange(S, dtype=torch.int32, device=frames.device)
-    for i in range(cfg.n_layers):
-        lp = L.block_view(params["enc"], i)
+
+    def body(lp, x):
         h = L.layernorm(lp["ln1"], x)
         a, _ = L.attention(lp["attn"], cfg.attn_cfg(), h, positions,
                            causal=False)
         x = x + a
         h = L.layernorm(lp["ln2"], x)
-        x = x + L.mlp(lp["mlp"], h)
+        return x + L.mlp(lp["mlp"], h)
+
+    body = L.block_remat(body, cfg)
+    for i in range(cfg.n_layers):
+        x = body(L.block_view(params["enc"], i), x)
     return L.layernorm(params["enc_norm"], x)
 
 
@@ -146,10 +150,22 @@ def decode_train(params: dict, cfg: WhisperConfig, tokens: torch.Tensor,
     x = x + _dec_positions(params, cfg, positions).to(x.dtype)
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
                            device=tokens.device)
+    body = L.block_remat(_dec_layer, cfg)
     for i in range(cfg.n_layers):
-        x = _dec_layer(L.block_view(params["dec"], i), cfg, x, positions,
-                       enc_out, enc_pos)
+        x = body(L.block_view(params["dec"], i), cfg, x, positions, enc_out,
+                 enc_pos)
     return L.layernorm(params["dec_norm"], x)
+
+
+def loss_fn(params: dict, cfg: WhisperConfig, frames: torch.Tensor,
+            tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The decoder's mean next-token cross-entropy given the encoder's
+    frames. The unembedding is the embedding table, transposed (tied, as
+    in Whisper), so its gradient sums both uses."""
+    enc_out = encode(params, cfg, frames)
+    h = decode_train(params, cfg, tokens, enc_out)
+    return L.chunked_xent(h, params["embed"]["embed"].T, targets,
+                          cfg.loss_chunk)
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:

@@ -96,10 +96,16 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree_mod.leaves(tree)))
 
 
+def clip_scale(grads: Tree, max_norm: float):
+    """``(scale, global norm)``: the clip multiplies every gradient by
+    ``min(1, max_norm / max(norm, 1e-12))``."""
+    gn = global_norm(grads)
+    return torch.clamp(max_norm / gn.clamp(min=1e-12), max=1.0), gn
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """``(clipped grads, global norm)``."""
-    gn = global_norm(grads)
-    scale = torch.clamp(max_norm / gn.clamp(min=1e-12), max=1.0)
+    scale, gn = clip_scale(grads, max_norm)
     return tree_mod.map(lambda g: g.to(torch.float32) * scale, grads), gn
 
 
@@ -135,9 +141,22 @@ def _split(out, n: int) -> list:
 
 def apply_updates(cfg: OptimConfig, state: dict, grads: Tree, params: Tree,
                   lr_scale=1.0):
-    """One optimizer step. Returns ``(new_state, new_params)``."""
+    """One optimizer step. Returns ``(new_state, new_params)``.
+
+    The clip's scale is applied leaf by leaf as each leaf is updated (the
+    values ``clip_by_global_norm`` gives, without a second gradient tree),
+    and AdamW's arithmetic runs in place on the fresh tensors it makes, in
+    the reference's order of operations, so one leaf's temporaries stay
+    few: at full width the old and new trees already fill most of the
+    card."""
+    scale = None
     if cfg.global_clip > 0:
-        grads, _ = clip_by_global_norm(grads, cfg.global_clip)
+        scale, _ = clip_scale(grads, cfg.global_clip)
+
+    def grad32(g):
+        gf = g.to(torch.float32)
+        return gf if scale is None else gf * scale
+
     step = state["step"] + 1
     lr = cfg.lr * lr_scale
 
@@ -146,16 +165,26 @@ def apply_updates(cfg: OptimConfig, state: dict, grads: Tree, params: Tree,
         bc2 = 1.0 - cfg.b2 ** step.to(torch.float32)
 
         def upd(g, p, m, v):
-            gf = g.to(torch.float32)
+            gf = grad32(g)
             pf = p.to(torch.float32)
-            mf = _load_moment(m, p.shape) * cfg.b1 + (1 - cfg.b1) * gf
-            vf = _load_moment(v, p.shape) * cfg.b2 + (1 - cfg.b2) * gf * gf
-            mh = mf / bc1
-            vh = vf / bc2
-            delta = mh / (torch.sqrt(vh) + cfg.eps)
+            mf = _load_moment(m, p.shape) * cfg.b1     # m b1 + (1-b1) g
+            t = (1 - cfg.b1) * gf
+            mf += t
+            vf = _load_moment(v, p.shape) * cfg.b2     # v b2 + (1-b2) g g
+            t = (1 - cfg.b2) * gf
+            t *= gf
+            vf += t
+            del gf
+            delta = mf / bc1                            # mh / (sqrt(vh)+eps)
+            t = vf / bc2
+            t.sqrt_()
+            t += cfg.eps
+            delta /= t
+            del t
             if _is_decay_param(p):
-                delta = delta + cfg.weight_decay * pf
-            return ((pf - lr * delta).to(p.dtype),
+                delta += cfg.weight_decay * pf
+            delta *= lr
+            return ((pf - delta).to(p.dtype),
                     _store_moment(mf, cfg.moment_dtype),
                     _store_moment(vf, cfg.moment_dtype))
 
@@ -166,7 +195,7 @@ def apply_updates(cfg: OptimConfig, state: dict, grads: Tree, params: Tree,
 
     if cfg.name == "lion":
         def upd(g, p, m):
-            gf = g.to(torch.float32)
+            gf = grad32(g)
             pf = p.to(torch.float32)
             mf = _load_moment(m, p.shape)
             direction = torch.sign(cfg.b1 * mf + (1 - cfg.b1) * gf)
@@ -182,7 +211,7 @@ def apply_updates(cfg: OptimConfig, state: dict, grads: Tree, params: Tree,
 
     if cfg.name == "sgd":
         def upd(g, p, m):
-            gf = g.to(torch.float32)
+            gf = grad32(g)
             mf = _load_moment(m, p.shape) * cfg.momentum + gf
             return ((p.to(torch.float32) - lr * mf).to(p.dtype),
                     _store_moment(mf, cfg.moment_dtype))

@@ -41,6 +41,7 @@ from repro_torch.core.pipeline import build_pipeline
 from repro_torch.data import stream as stream_mod
 from repro_torch.data.temporal_graph import TemporalGraph
 from repro_torch.training import optim as opt_mod
+from repro_torch.training.train_loop import value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,20 +68,6 @@ def features(g: TemporalGraph, cfg: tgn.TGNConfig, device) -> tuple:
 def batch_tensors(batch: stream_mod.EdgeBatch, device) -> tuple:
     """``(src, dst, eid, ts, valid, neg_dst)`` on ``device``."""
     return tuple(torch.as_tensor(x, device=device) for x in batch)
-
-
-def value_and_grad(loss_fn, params: dict, *args):
-    """``(loss, aux, grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
-    with respect to every leaf of ``params``. A leaf the loss does not
-    reach (the LUT boundaries) gets a zero gradient, as under
-    ``jax.value_and_grad``; ``aux`` is returned as the loss function gave
-    it, still attached to the freed graph (detach what is kept)."""
-    live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-    loss, aux = loss_fn(tree.unflatten(params, live), *args)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(live, grads)]
-    return loss.detach(), aux, tree.unflatten(params, grads)
 
 
 def _embed_negatives(pipe, params, aux, state, node_feats, edge_feats,

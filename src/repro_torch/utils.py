@@ -1,7 +1,10 @@
-"""Small shared utilities: constants, config base, device resolution."""
+"""Small shared utilities: constants, config base, device resolution,
+deterministic kernels."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 
 import torch
 
@@ -76,3 +79,21 @@ def resolve_device(device=None) -> torch.device:
                                "run the port on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels inside the block, so a training run and its
+    resumption take the same bits: on the card the backward of a gather
+    with repeated indices (the token embedding, MoE's dispatch and
+    combine) otherwise scatters with atomic adds in no fixed order. cuBLAS
+    needs a fixed workspace for it (``CUBLAS_WORKSPACE_CONFIG``, set here
+    unless the caller set it, which counts only before CUDA is first
+    used)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)

@@ -162,7 +162,7 @@ def test_attention_with_cache_appends_in_place_like_reference():
     jcfg, tcfg, jp, tp = _attn()
     x = _x((2, 12, 32))
     jc = JL.init_kv_cache(2, 16, jcfg, dtype=jnp.float32)
-    tc = convert.lm_caches_from_reference(_np(jc), "cpu")
+    tc = convert.params_from_reference(_np(jc), "cpu")
     for s in (slice(0, 6), slice(6, 12)):
         pos = np.arange(s.start, s.stop, dtype=np.int32)
         want, jc = JL.attention(jp, jcfg, jnp.asarray(x[:, s]),
@@ -178,7 +178,7 @@ def test_attention_with_cache_appends_in_place_like_reference():
 
 def _decode_both(jcfg, tcfg, jp, tp, jc, steps, seed=6, fn=None,
                  jfn=None):
-    tc = convert.lm_caches_from_reference(_np(jc), "cpu")
+    tc = convert.params_from_reference(_np(jc), "cpu")
     xs = _x((steps, 2, 1, 32), seed=seed)
     fn = fn or (lambda x, c: L.decode_attention(tp, tcfg, x, c))
     jfn = jax.jit(jfn or (lambda x, c: JL.decode_attention(jp, jcfg, x, c)))
@@ -221,7 +221,7 @@ def test_decode_attention_on_bf16_caches_with_and_without_upcast():
     for upcast in (True, False):
         jcfg, tcfg, jp, tp = _attn(cache_upcast=upcast)
         jc = JL.init_kv_cache(2, 10, jcfg)             # bf16
-        tc = convert.lm_caches_from_reference(_np(jc), "cpu")
+        tc = convert.params_from_reference(_np(jc), "cpu")
         assert tc["k"].dtype == torch.bfloat16
         xs = _x((7, 2, 1, 32), seed=7)
         jdecode = jax.jit(lambda p, x, c: JL.decode_attention(p, jcfg, x, c))
@@ -229,7 +229,7 @@ def test_decode_attention_on_bf16_caches_with_and_without_upcast():
             want, jc = jdecode(jp, jnp.asarray(xs[t]), jc)
             got, tc = L.decode_attention(tp, tcfg, torch.as_tensor(xs[t]), tc)
             _close(got, want, tol)
-        back = convert.lm_caches_to_numpy(tc)
+        back = convert.params_to_numpy(tc)
         for k in ("k", "v"):
             _close(back[k], np.asarray(jc[k], np.float32),
                    dict(rtol=2 ** -7, atol=1e-6))

@@ -147,8 +147,8 @@ def test_prefill_and_decode_match_the_reference(arch):
         dtypes.append((jnp.bfloat16, torch.bfloat16, BF16_TOL))
     for jdt, tdt, tol in dtypes:
         jc = jm.init_caches(jcfg, B, 12, dtype=jdt)
-        tc = convert.lm_caches_from_reference(jax.tree.map(np.asarray, jc),
-                                              "cpu")
+        tc = convert.params_from_reference(jax.tree.map(np.asarray, jc),
+                                           "cpu")
         for a, b in zip(tree.leaves(tc), jax.tree.leaves(jc)):
             assert a.dtype == (tdt if b.dtype == jdt else
                                {jnp.dtype("float32"): torch.float32,
@@ -171,7 +171,7 @@ def test_prefill_and_decode_match_the_reference(arch):
                 # the reference keeps a recurrent layer's new conv tail in
                 # the compute dtype, and so does the port
                 assert str(a.dtype).split(".")[-1] == b.dtype.name, path
-                _close(convert.lm_caches_to_numpy(a), b.astype(np.float32),
+                _close(convert.params_to_numpy(a), b.astype(np.float32),
                        tol, path)
 
 
@@ -221,7 +221,7 @@ def test_cross_kv_from_encoder_or_vision_match_the_reference(arch):
         jm, tm = jvision, vision_lm
     for k in ("cross_k", "cross_v"):
         assert tc[k].dtype == torch.bfloat16
-        _close(convert.lm_caches_to_numpy(tc[k]),
+        _close(convert.params_to_numpy(tc[k]),
                np.asarray(jc[k], np.float32), BF16_TOL, k)
     # and decoding against them (bf16 caches)
     jdecode = jax.jit(lambda p, t, c: jm.decode_step(p, jcfg, t, c))

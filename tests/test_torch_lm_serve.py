@@ -133,10 +133,10 @@ def test_lm_caches_convert_both_ways_with_bf16_leaves():
     jc = jlm.FAMILIES["rglru"].init_caches(jcfg, 2, 12)
     jc = jax.tree.map(lambda a: a + jnp.asarray(0.5, a.dtype)
                       if jnp.issubdtype(a.dtype, jnp.floating) else a, jc)
-    tc = convert.lm_caches_from_reference(jax.tree.map(np.asarray, jc), "cpu")
+    tc = convert.params_from_reference(jax.tree.map(np.asarray, jc), "cpu")
     assert tc["l0"]["conv"].dtype == torch.bfloat16
     assert tc["l2"]["k_pos"].dtype == torch.int32
-    back = convert.lm_caches_to_numpy(tc)
+    back = convert.params_to_numpy(tc)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jc)):
         np.testing.assert_array_equal(a, np.asarray(b).astype(a.dtype))
 

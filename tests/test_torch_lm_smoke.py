@@ -13,7 +13,6 @@ import torch
 from repro_torch import configs
 from repro_torch.core import perf_model
 from repro_torch.launch import lm_smoke, main_path as mp
-from repro_torch.models import layers as L
 from repro_torch.models import lm_common, transformer
 
 torch.set_num_threads(1)
@@ -90,10 +89,10 @@ def test_serve_full_replays_generate_and_bounds_the_bytes_it_needs():
 
 @pytest.mark.parametrize("fault", sorted(lm_smoke.PLANTS))
 def test_planted_puts_the_sound_function_back(fault):
-    name = lm_smoke.PLANTS[fault][0]
-    sound = getattr(L, name)
+    mod, name, _ = lm_smoke.PLANTS[fault]
+    sound = getattr(mod, name)
     with pytest.raises(KeyError):
         with lm_smoke.planted(fault):
-            assert getattr(L, name) is not sound
+            assert getattr(mod, name) is not sound
             raise KeyError
-    assert getattr(L, name) is sound
+    assert getattr(mod, name) is sound

@@ -626,14 +626,17 @@ def test_trainer_entry_points_run_on_cpu_and_refuse_without_cuda(
     for name in ("teacher", "+SAT", "+LUT", "+NP(L)", "+NP(M)", "+NP(S)"):
         assert f"[{name}] AP=" in out
     assert ckpt.latest_step(str(tmp_path / "student_+NP(M)")) == 0
-    with pytest.raises(SystemExit):
-        train_cli.main(["--mode", "lm", "--device", "cpu"])
+    # --mode lm is ported: it trains on the CPU when asked to
+    lm = train_cli.main(["--mode", "lm", "--steps", "1", "--batch", "2",
+                         "--seq", "16", "--device", "cpu"])
+    assert len(lm["losses"]) == 1 and np.isfinite(lm["losses"]).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: trainer.train_teacher(g, t_cfg, tcfg),
                  lambda: trainer.distill_student(g, tp, t_cfg, s_cfg, tcfg),
                  lambda: trainer.evaluate_ap(tp, t_cfg, g, slice(0, B)),
                  lambda: ckpt.restore(str(tmp_path / "teacher"), tp),
-                 lambda: train_cli.main(["--edges", "300"])):
+                 lambda: train_cli.main(["--edges", "300"]),
+                 lambda: train_cli.main(["--mode", "lm", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
