@@ -35,6 +35,14 @@ without them, and on any failed check. In order it:
     sources and random negative destinations on the staged and fused
     tiers against the ref tier, each launching sat_aggregate once, and
     ``link_score`` of the result;
+ 6b. the windowed path: the same graph and weights served in the first 50
+    windows of 12 hours of stream time (``stream.time_window``, at most
+    B = 200 edges each: 19-200 edges, so the kernels see ragged counts of
+    valid rows), on ref, staged and fused; every window's embeddings and
+    the final state of the kernel tiers held to ref at the engine's
+    tolerance, every kernel of a tier launched once a window (counts
+    zeroed just before each run and read just after); the widths' range
+    is printed;
  7. builds the GDELT-like graph (1,000 vertices, 200 static node features,
     no edge features), holds lut_encode, gru_cell (mail 400 x 200) and
     sat_aggregate (kv 400 x 4 x 100, no edge stages) against their plain
@@ -138,7 +146,12 @@ without them, and on any failed check. In order it:
     scores rounded to bf16; the online softmax without its rescale);
     mamba2-130m and whisper-tiny at ``config()``, decode against prefill
     in fp32; every tolerance stated in its line (none of it launches a
-    port kernel: the LM path has none);
+    port kernel: the LM path has none); then, for every architecture's
+    published config in the ``tp`` and ``fsdp2d`` layouts, one line of
+    the bytes a device of the (16, 16) and (2, 16, 16) production meshes
+    holds of its parameters and of its two fp32 AdamW moments under the
+    ZeRO-1 specs (``distributed/sharding.py``, spec arithmetic on ``meta``
+    tensors, no allocation and no check);
 13b. the LM-training phase (``launch/lm_train_smoke.py``), in a process
     of its own under deterministic algorithms (the cuBLAS workspace they
     need is set in that process only): every architecture's smoke config
@@ -155,13 +168,17 @@ without them, and on any failed check. In order it:
     ``attn_remat`` on and off (bitwise) and in one attention block against
     8 x 4 (the planted no-rescale rejected), 3 steps with each
     ``attn_remat`` (bitwise), a 24.2 GB checkpoint after step 2 restored
-    and its step 3 bitwise, ms a step, tokens/s and peak memory beside the
+    and its step 3 bitwise, the same checkpoint restored by
+    ``elastic.resume`` onto the card's host mesh in ``tp``, its parameters
+    remeshed to the ``fsdp2d`` specs, and step 3 from there bitwise, ms a
+    step, tokens/s and peak memory beside the
     roofline bound; ``launch/train.py --mode lm`` killed after its step-3
     checkpoint and rerun, its final state bitwise an uninterrupted run's;
 14. prints each run's latency/throughput summary;
-15. prints one ``{"kernels": [...]}`` line (with ``fabric_launches`` and
-    ``serving_launches``, each kernel's launches in the fabric and
-    serving-stack phases) and, last, ``{"ok": true, "device": {...}}``.
+15. prints one ``{"kernels": [...]}`` line (with ``window_launches``,
+    ``fabric_launches`` and ``serving_launches``, each kernel's launches
+    in the windowed, fabric and serving-stack phases) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 After the engines it prints the paper's §V model's prediction for its
 U200 design point at B = 200 (``core/perf_model.py``) beside the np4
@@ -174,6 +191,7 @@ The serving phases' weights are random, drawn from a seeded
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import re
@@ -193,6 +211,10 @@ N_LADDER = 20
 #: ladder's np2, np6 and score-all (k = m_r) rungs
 EU_KS = (2, 6, 10)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+#: the port kernels a tier's step launches, once a step each
+TIER_KERNELS = {"ref": (), "staged": ("lut_encode", "gru_cell",
+                                      "sat_aggregate"),
+                "fused": ("fused_step",)}
 # 50 chained steps: each tier rounds its own fp32 sums, and the GRU carries
 # the rounding from step to step
 TIER_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -628,13 +650,22 @@ def check_eu_at_k(ops, mp, dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_engine(tier, cfg, params, g, device, n_batches, batch):
+def run_engine(tier, cfg, params, g, device, n_batches, batch,
+               window_s=None):
+    """``n_batches`` batches of ``batch`` edges on ``tier``, or with
+    ``window_s`` the first ``n_batches`` windows of that many seconds of
+    stream time, at most ``batch`` edges each."""
     from repro_torch.data import stream
     from repro_torch.serving.engine import EngineConfig, StreamingEngine
     eng = StreamingEngine(EngineConfig(model=cfg, use_kernels=tier), params,
                           g.edge_feats, g.node_feats, device=device)
     embs = []
-    batches = stream.fixed_count(g, batch, window=slice(0, n_batches * batch))
+    if window_s:
+        batches = itertools.islice(stream.time_window(g, window_s, batch),
+                                   n_batches)
+    else:
+        batches = stream.fixed_count(g, batch,
+                                     window=slice(0, n_batches * batch))
     for host, (es, ed) in eng.run(batches):
         check(torch.isfinite(es).all().item()
               and torch.isfinite(ed).all().item(), f"{tier}: finite")
@@ -662,6 +693,67 @@ def compare_tiers(name, got, want, tol) -> float:
         else:
             check(torch.equal(a, b), f"{name}: state {f} equal")
     return worst
+
+
+def run_windowed(ops, mp, g, cfg, params, dev) -> dict:
+    """The engine over ``mp.N_WINDOWS`` windows of ``mp.WINDOW_S`` seconds
+    of stream time (at most B edges each, so ragged counts of valid rows)
+    on each tier; the kernel tiers held to ref like the fixed-count run,
+    each of their kernels launched once a window. Returns each kernel's
+    launches on its tier's run."""
+    runs, launches = {}, {}
+    for tier in ("ref", "staged", "fused"):
+        ops.reset_launch_counts()
+        eng, embs = run_engine(tier, cfg, params, g, dev, mp.N_WINDOWS,
+                               mp.B, window_s=mp.WINDOW_S)
+        launches[tier] = ops.launch_counts()
+        runs[tier] = (embs, eng.state)
+        widths = [int(m.sum()) // 2 for _, m in embs]
+        check(len(widths) == mp.N_WINDOWS, f"windowed {tier}: "
+              f"{mp.N_WINDOWS} windows")
+        check(all(launches[tier][n] == (mp.N_WINDOWS if n in TIER_KERNELS[tier]
+                                        else 0) for n in launches[tier]),
+              f"windowed {tier}: launches {launches[tier]}")
+        err = 0.0 if tier == "ref" else compare_tiers(
+            f"windowed {tier} vs ref", runs[tier], runs["ref"], TIER_TOL)
+        sm = eng.summary()
+        print(f"windowed {tier}: {mp.N_WINDOWS} windows of {mp.WINDOW_S:.0f}"
+              f" s, {min(widths)}-{max(widths)} edges a window (mean "
+              f"{np.mean(widths):.1f}, cap {mp.B}); launches "
+              f"{launches[tier]}; max abs diff vs ref {err:.3g} (tol "
+              f"{TIER_TOL}); mean {sm['mean_latency_ms']:.3f} ms, p99 "
+              f"{sm['p99_latency_ms']:.3f} ms, {sm['throughput_eps']:.0f} "
+              f"edges/s", flush=True)
+    return {n: launches["fused" if n == "fused_step" else "staged"][n]
+            for n in launches["ref"]}
+
+
+def print_shard_bytes(card: str) -> None:
+    """Per device of the (16, 16) and (2, 16, 16) production meshes, each
+    arch's published config in both layouts: its parameters' bytes and
+    its two fp32 AdamW moments' bytes under the ZeRO-1 specs, by spec
+    arithmetic over ``meta`` tensors (nothing allocated, nothing
+    checked), and whether the two fit in one card's 80 GB."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh
+    meshes = {"16x16": mesh.make_production_mesh(devices=["meta"] * 256),
+              "2x16x16": mesh.make_production_mesh(
+                  multi_pod=True, devices=["meta"] * 512)}
+    for arch in configs.all_archs():
+        cfg = configs.get(arch).config()
+        for mode in ("tp", "fsdp2d"):
+            parts = []
+            for name, m in meshes.items():
+                b = mesh.shard_bytes(cfg, mode, m)
+                total = (b["params"] + b["moments"]) / 1e9
+                parts.append(f"{name}: parameters {b['params'] / 1e9:.3f} "
+                             f"GB + moments {b['moments'] / 1e9:.3f} GB = "
+                             f"{total:.3f} GB, "
+                             f"{'fits' if total <= 80 else 'does not fit'} "
+                             f"80 GB")
+            print(f"shard bytes {arch} {mode} (per device; gradients and "
+                  f"activations not counted): {'; '.join(parts)}; printed "
+                  f"on {card}", flush=True)
 
 
 def small_graph_check(pl, tgd) -> None:
@@ -780,9 +872,6 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
     """Every variant of the ladder on ref, staged and fused, each kernel
     run held against the variant's ref run, with launch counts."""
     from repro_torch.core import stages
-    kernels_of = {"ref": (), "staged": ("lut_encode", "gru_cell",
-                                        "sat_aggregate"),
-                  "fused": ("fused_step",)}
     for variant in mp.LADDER:
         cfg, params = mp.model(g, variant, dev)
         mac, mem = table2_row(cx, cfg)[1:3]
@@ -797,7 +886,7 @@ def run_ladder(ops, mp, cx, g, dev) -> None:
             resolved = tier if covered or tier == "ref" else "staged"
             check(desc["tier"] == resolved,
                   f"ladder {variant} {tier}: resolved tier {desc['tier']}")
-            want = kernels_of[resolved] if covered else ()
+            want = TIER_KERNELS[resolved] if covered else ()
             check(all(counts[n] == (N_LADDER if n in want else 0)
                       for n in counts),
                   f"ladder {variant} {tier}: launches {counts}, want "
@@ -1517,16 +1606,13 @@ def run_training(ops, mp, g_full, dev) -> None:
           flush=True)
 
     runs, engines = {}, {}
-    kernels_of = {"ref": (), "staged": ("lut_encode", "gru_cell",
-                                        "sat_aggregate"),
-                  "fused": ("fused_step",)}
     for tier in stages.KERNEL_TIERS:
         ops.reset_launch_counts()
         eng, embs = run_engine(tier, s_cfg, restored, g, dev,
                                N_SERVE_TRAINED, mp.B)
         counts = ops.launch_counts()
         runs[tier], engines[tier] = (embs, eng.state), eng
-        check(all(counts[n] == (N_SERVE_TRAINED if n in kernels_of[tier]
+        check(all(counts[n] == (N_SERVE_TRAINED if n in TIER_KERNELS[tier]
                                 else 0) for n in counts),
               f"trained student {tier}: launches {counts}")
         err = 0.0 if tier == "ref" else compare_tiers(
@@ -1630,6 +1716,7 @@ def main() -> int:
               f"{N_BATCHES} steps and the final state (tol {TIER_TOL})",
               flush=True)
     check_embed(ops, tgn, stream, engines, g, mp.B)
+    window_launches = run_windowed(ops, mp, g, cfg, params, dev)
     from repro_torch.core import perf_model
     fpga = perf_model.predict(perf_model.U200, mp.B)
     print(f"perf model: the paper's U200 design point (Eqs. 18-22) predicts "
@@ -1657,6 +1744,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.launch import lm_smoke
     lm_smoke.run(dev, card)
+    print_shard_bytes(card)
     run_lm_training(card)
 
     rows = []
@@ -1666,6 +1754,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": launches[tier][name],
+                     "window_launches": window_launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"],
                      "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -142,3 +142,46 @@ def sat_logits(params: dict, dt_nbr: torch.Tensor) -> torch.Tensor:
     tenant in a fleet must equal its solo run bit for bit."""
     dtf = torch.log1p(dt_nbr.clamp(min=0.0))
     return params["a"] + (dtf[..., None, :] * params["w_t"]).sum(dim=-1)
+
+
+def sat_attention(params: dict, cfg: AttnConfig, time_params: dict,
+                  s_self: torch.Tensor, f_self: torch.Tensor | None,
+                  s_nbr: torch.Tensor, e_nbr: torch.Tensor,
+                  dt_nbr: torch.Tensor, valid: torch.Tensor, *,
+                  encoder: str = "cosine", lut_folded: dict | None = None):
+    """Student aggregator with prune-then-fetch over pre-gathered full
+    buffers (the reference's composition, which its seed oracle calls; the
+    engine's stages prune before they gather). s_nbr (B, m_r, f_mem),
+    e_nbr (B, m_r, f_edge), dt_nbr and valid (B, m_r). ``encoder``
+    "cosine" encodes the kept dt and projects the whole ``[s || e ||
+    Phi]``; "lut" adds the LUT folded through ``w_v``'s time rows
+    (``lut_folded``, folded here when not given). Returns (h (B, f_emb),
+    full logits (B, m_r))."""
+    fp = feat_proj(params["feat"], s_self, f_self)
+    logits = sat_logits(params, dt_nbr)
+    m_r = dt_nbr.shape[1]
+    if cfg.prune_k is not None and cfg.prune_k < m_r:
+        idx, sel_logits, sel_valid = pruning.topk_select(logits, valid,
+                                                         cfg.prune_k)
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        s_sel, e_sel = s_nbr[rows, idx], e_nbr[rows, idx]
+        dt_sel = torch.gather(dt_nbr, 1, idx)
+        attn = pruning.masked_softmax(sel_logits, sel_valid)
+    else:
+        s_sel, e_sel, dt_sel = s_nbr, e_nbr, dt_nbr
+        attn = pruning.masked_softmax(logits, valid)
+
+    n_se = cfg.f_mem + cfg.f_edge
+    if encoder == "lut":
+        folded = lut_folded
+        if folded is None:
+            folded = te.fold_projection(time_params, params["w_v"][n_se:])
+        v = (torch.cat([s_sel, e_sel], dim=-1) @ params["w_v"][:n_se]
+             + te.lut_encode(folded, dt_sel) + params["b_v"])
+    else:
+        phi = te.cosine_encode(time_params, dt_sel)
+        v = (torch.cat([s_sel, e_sel, phi], dim=-1) @ params["w_v"]
+             + params["b_v"])
+    agg = torch.einsum("bn,bnd->bd", attn, v)
+    h = torch.cat([fp, agg], dim=-1) @ params["w_out"] + params["b_out"]
+    return h, logits

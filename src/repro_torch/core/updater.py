@@ -30,6 +30,33 @@ def last_write_wins(ids: torch.Tensor, valid: torch.Tensor | None = None,
     return (order == last) & valid
 
 
+def last_write_wins_sorted(ids: torch.Tensor,
+                           valid: torch.Tensor | None = None,
+                           order: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """``last_write_wins`` of one (n,) block in O(n log n): rows sorted by
+    (id, chronological order), the last row of each id group wins. Invalid
+    rows take the int32 maximum as their id, a group that never wins.
+    torch has no ``lexsort``, so the order is two stable sorts: by
+    ``order``, then by id."""
+    n = ids.shape[0]
+    if order is None:
+        order = torch.arange(n, device=ids.device)
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    sentinel = torch.iinfo(torch.int32).max
+    sent = torch.where(valid, ids, torch.full_like(ids, sentinel))
+    by_order = torch.sort(order, stable=True).indices
+    perm = by_order[torch.sort(sent[by_order], stable=True).indices]
+    sorted_ids = sent[perm]
+    next_differs = torch.cat([sorted_ids[1:] != sorted_ids[:-1],
+                              torch.ones((1,), dtype=torch.bool,
+                                         device=ids.device)])
+    out = torch.zeros((n,), dtype=torch.bool, device=ids.device)
+    out[perm] = next_differs & (sorted_ids != sentinel)
+    return out
+
+
 def interleave_order(B: int, device) -> torch.Tensor:
     """Chronological positions for the concat([src, dst]) row layout: edge
     e's src row precedes its dst row, edges in batch order."""
@@ -54,3 +81,10 @@ def commit(table: torch.Tensor, ids: torch.Tensor, values: torch.Tensor,
     row at index V, which is sliced off: a new table."""
     ext = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
     return commit_(ext, ids, values, winners)[:table.shape[0]]
+
+
+def commit_scalar(table: torch.Tensor, ids: torch.Tensor,
+                  values: torch.Tensor, winners: torch.Tensor
+                  ) -> torch.Tensor:
+    """``commit`` for (V,)-shaped tables, the reference's name for it."""
+    return commit(table, ids, values, winners)

@@ -23,7 +23,8 @@ Guarantees:
     background thread;
   * checkpoints hold whole logical arrays, and ``restore(...,
     shardings=)`` places each leaf by its target's specs
-    (``tgn_sharding.NamedSharding``), so one restores onto any mesh shape.
+    (``tgn_sharding.NamedSharding``, or ``sharding.NamedSharding`` for the
+    language models), so one restores onto any mesh shape.
 """
 from __future__ import annotations
 
@@ -178,9 +179,9 @@ def restore(root: str, tree_like: Tree, *, step: int | None = None,
     """Load a checkpoint into the structure of ``tree_like`` (leaves with a
     ``shape``), as tensors on ``device`` (``cuda`` unless the caller names
     another), or with ``shardings`` (a tree congruent to ``tree_like`` of
-    ``tgn_sharding.NamedSharding``) each leaf placed by its sharding: on
-    its mesh's first device, or as the pieces of its split dimension on
-    their devices. Returns ``(tree, meta)``. Raises on a checksum mismatch
+    ``NamedSharding``s, ``tgn_sharding``'s or ``sharding``'s) each leaf
+    placed by its sharding's ``place``: on its mesh's first device, or as
+    the pieces its spec splits it into. Returns ``(tree, meta)``. Raises on a checksum mismatch
     or a structure that drifted."""
     if shardings is None:
         device = resolve_device(device)

@@ -21,7 +21,9 @@ c) qwen3-8b at its published width, its depth cut to 4 layers: the first
    q_block = k_block = S (one block) against the chunked ones, with the
    planted "no rescale" rejected; 3 steps with each ``attn_remat``
    setting (bitwise); a checkpoint written after step 2 and restored,
-   whose step 3 is bitwise the uninterrupted one; ms a step, tokens/s and
+   whose step 3 is bitwise the uninterrupted one; the same checkpoint
+   restored by ``elastic.resume`` onto the host mesh in ``tp`` and its
+   parameters remeshed to the ``fsdp2d`` specs, step 3 again bitwise; ms a step, tokens/s and
    peak memory beside the roofline bound; one step timed with the
    deterministic algorithms off;
 d) ``launch/train.py --mode lm`` killed once its step-3 checkpoint is
@@ -49,8 +51,10 @@ import torch
 from repro_torch import configs, tree
 from repro_torch.core import perf_model
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, elastic
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import main_path as mp
+from repro_torch.launch import mesh
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.lm_smoke import (card_line, check, planted, sync,
                                          to_device)
@@ -484,6 +488,27 @@ def train_qwen(cfg, dev, card: str, spec: dict = mp.LM_TRAIN_QWEN) -> dict:
         resume_equal = (resumed == runs[False]["losses"][at:]
                         and trees_equal(params, runs[False]["params"]))
         del params, opt
+
+        # elastic: the same checkpoint onto the host mesh in tp, the live
+        # parameters remeshed (through the host, a leaf at a time) to the
+        # fsdp2d specs, then the steps after it
+        host = mesh.make_host_mesh(dev)
+        t0 = time.perf_counter()
+        state, _ = elastic.resume(root, like, host, "tp", step=at)
+        elastic_s = time.perf_counter() - t0
+        opt = state.pop("opt")
+        t0 = time.perf_counter()
+        params = elastic.remesh(state.pop("params"), host, shd.param_specs(
+            like["params"], "fsdp2d", host.shape["model"]))
+        sync(dev)
+        remesh_s = time.perf_counter() - t0
+        elastic_losses = []
+        for i in range(at, n):
+            params, opt, m = step(params, opt, batches[i], i + 1)
+            elastic_losses.append(float(m["loss"]))
+        elastic_equal = (elastic_losses == runs[False]["losses"][at:]
+                         and trees_equal(params, runs[False]["params"]))
+        del params, opt
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -492,7 +517,9 @@ def train_qwen(cfg, dev, card: str, spec: dict = mp.LM_TRAIN_QWEN) -> dict:
                    and trees_equal(a["params"], b["params"]))
     out = {"remat_equal": remat_equal, "one_block_err": one_err,
            "planted_err": bad_err, "steps_equal": steps_equal,
-           "resume_equal": resume_equal, "det_ms": runs["det_ms"]}
+           "resume_equal": resume_equal, "elastic_equal": elastic_equal,
+           "elastic_s": elastic_s, "remesh_s": remesh_s,
+           "det_ms": runs["det_ms"]}
     for key, r in ((False, a), (True, b)):
         med = statistics.median(r["ms"][1:] or r["ms"])
         bound, g16, g32, gbytes = step_bound_ms(cfg, B, S, key)
@@ -512,11 +539,16 @@ def train_qwen(cfg, dev, card: str, spec: dict = mp.LM_TRAIN_QWEN) -> dict:
           f"bitwise {steps_equal}; checkpoint after step {at} ({gb:.1f} GB: "
           f"saved in {ckpt_s:.1f} s, restored in {restore_s:.1f} s), its "
           f"steps {at + 1}..{n} bitwise the uninterrupted ones "
-          f"{resume_equal}; a step with deterministic algorithms off "
+          f"{resume_equal}; elastic.resume onto the host mesh in tp "
+          f"({elastic_s:.1f} s) and its parameters remeshed to the fsdp2d "
+          f"specs ({remesh_s:.1f} s), steps {at + 1}..{n} bitwise "
+          f"{elastic_equal}; a step with deterministic algorithms off "
           f"{runs['det_ms'][False]:.1f} ms, on {runs['det_ms'][True]:.1f} "
           f"ms; on {card}", flush=True)
     check(steps_equal, f"{cfg.arch}: attn_remat on and off, 3 steps bitwise")
     check(resume_equal, f"{cfg.arch}: the resumed steps bitwise")
+    check(elastic_equal, f"{cfg.arch}: the steps after elastic.resume and "
+          "remesh bitwise")
     return out
 
 

@@ -16,6 +16,10 @@ All run at paper width (f_mem = f_time = f_emb = 100, m_r = 10, 128 LUT
 entries; the student ``sat+lut+np4`` keeps k = 4) in batches of B = 200
 edges, with random weights from a fixed seed.
 
+``WINDOW_S``: the same path served in windows of stream time
+(``stream.time_window``), at most B edges a window, so the kernels see
+ragged counts of valid rows.
+
 ``train_graph``: the Wikipedia path's stream cut to its first 14,284
 edges, whose chronological train window is ``TRAIN_STEPS`` batches of
 ``TRAIN_B`` edges: the depth at which chip_smoke trains the teacher and
@@ -74,6 +78,10 @@ FABRIC_ROUNDS = 10           # rounds of each mesh and round kind
 #: so a vertex axis of 2 or 4 splits V (the rules drop an axis that does
 #: not divide V, and 9,227 is prime)
 FABRIC_V = GRAPH["n_users"] + GRAPH["n_items"] + 1
+#: the windowed path: ``stream.time_window`` windows of 12 hours of stream
+#: time, at most B edges each; the first 50 hold 19-200 edges (mean 144.5)
+WINDOW_S = 43_200.0
+N_WINDOWS = 50
 TRAIN_B = 100                # edges per training batch
 TRAIN_STEPS = 100            # batches in the cut stream's train window
 

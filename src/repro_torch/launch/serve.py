@@ -2,7 +2,9 @@
 and report latency/throughput, or generate with a language model.
 
 Port of ``repro.launch.serve``: ``--mode tgn`` (the default) and ``--mode
-lm``. In ``--mode tgn`` one stream is served by the StreamingEngine. With
+lm``. In ``--mode tgn`` one stream is served by the StreamingEngine, in
+batches of ``--batch`` edges or, with ``--window-s``, in windows of that
+many seconds of stream time (at most ``--batch`` edges each). With
 ``--tenants N`` (or ``--tenant-variants``) the stream is split into N
 contiguous feeds, one a tenant, served by the multi-tenant
 SessionManager: each round issues every
@@ -42,6 +44,8 @@ Examples:
     PYTHONPATH=src python -m repro_torch.launch.serve --kernels ref \\
         --edges 800 --batch 100 --f-mem 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset gdelt
+    PYTHONPATH=src python -m repro_torch.launch.serve --window-s 900 \
+        --batch 256 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --variant teacher \\
         --edges 800 --batch 100 --f-mem 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --tenants 4 \\
@@ -436,7 +440,11 @@ def run_tgn(args) -> dict:
                              params, g.edge_feats, g.node_feats,
                              device=device)
     print("engine stages:", engine.describe())
-    for _batch, _out in engine.run(stream.fixed_count(g, args.batch)):
+    if args.window_s:
+        batches = stream.time_window(g, args.window_s, args.batch)
+    else:
+        batches = stream.fixed_count(g, args.batch)
+    for _batch, _out in engine.run(batches):
         pass
     summary = engine.summary()
     print("engine summary:", summary)
@@ -474,6 +482,10 @@ def main(argv=None):
                     choices=tuple(tgd.DATASETS))
     ap.add_argument("--edges", type=int, default=4000)
     ap.add_argument("--batch", type=int, default=200)
+    ap.add_argument("--window-s", type=float, default=0.0,
+                    help="tgn: serve every edge of consecutive windows of "
+                    "this many seconds of stream time, at most --batch a "
+                    "window (0: batches of exactly --batch edges)")
     ap.add_argument("--f-mem", type=int, default=32)
     ap.add_argument("--variant", default="sat+lut+np4",
                     help="a registry name or alias: vanilla+cosine "

@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
 from repro_torch.utils import FrozenConfig
@@ -275,8 +276,10 @@ def backbone(params: dict, cfg: MambaConfig, tokens: torch.Tensor
         return _layer_fwd(lp, cfg, x)[0]
 
     body = L.block_remat(body, cfg)
+    x = shd.constrain(x, "carry")
     for i in range(cfg.n_layers):
-        x = body(L.block_view(params["layers"], i), x)
+        x = shd.constrain(body(L.block_view(params["layers"], i), x),
+                          "carry")
     return L.rmsnorm(params["final_norm"], x)
 
 

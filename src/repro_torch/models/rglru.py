@@ -26,6 +26,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
 from repro_torch.models.mamba2 import _causal_conv  # shared depthwise conv
@@ -242,8 +243,10 @@ def backbone(params: dict, cfg: GriffinConfig, tokens: torch.Tensor
 
     # the reference checkpoints the scanned blocks, not the tail
     body = L.block_remat(body, cfg)
+    x = shd.constrain(x, "carry")
     for b in range(cfg.n_full_blocks):
-        x = body(L.block_view(params["blocks"], b), x)
+        x = shd.constrain(body(L.block_view(params["blocks"], b), x),
+                          "carry")
     for i, kind in enumerate(cfg.tail):
         x = _layer_fwd(params["tail"][f"l{i}"], cfg, kind, x, positions)
     return L.rmsnorm(params["final_norm"], x)

@@ -13,8 +13,8 @@ stacked leaves, and decode writes each block's new keys and values into
 the stacked caches in place (the reference's ``decode_unroll`` form; its
 scanned form computes the same). Each block body runs under ``_remat``
 (the reference's ``jax.checkpoint`` of the scan body, policy ``remat``).
-The reference's sharding constraints are identities on one device and are
-left out.
+The activation constraints sit where the reference's do
+(``sharding.constrain``: the identity on one device).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.utils import FrozenConfig
@@ -170,6 +171,7 @@ def _layer_fwd(lp: dict, cfg: LMConfig, kind: str, x: torch.Tensor,
 
 def _block_fwd(bp: dict, cfg: LMConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
+    x = shd.constrain(x, "block_in")
     for i, kind in enumerate(cfg.pattern):
         x = _layer_fwd(bp[f"l{i}"], cfg, kind, x, positions)
     return x
@@ -198,8 +200,11 @@ def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = _embed(params, cfg, tokens)
     body = _remat(_block_fwd, cfg)
+    x = shd.constrain(x, "carry")
     for b in range(cfg.n_blocks):
-        x = body(L.block_view(params["blocks"], b), cfg, x, positions)
+        x = shd.constrain(
+            body(L.block_view(params["blocks"], b), cfg, x, positions),
+            "carry")
     return L.rmsnorm(params["final_norm"], x)
 
 

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.utils import FrozenConfig
 
@@ -133,8 +134,10 @@ def backbone(params: dict, cfg: VisionLMConfig, tokens: torch.Tensor,
         return x
 
     body = L.block_remat(body, cfg)
+    x = shd.constrain(x, "carry")
     for b in range(cfg.n_blocks):
-        x = body(L.block_view(params["blocks"], b), x)
+        x = shd.constrain(body(L.block_view(params["blocks"], b), x),
+                          "carry")
     return L.rmsnorm(params["final_norm"], x)
 
 

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import embed_init
 from repro_torch.utils import FrozenConfig
@@ -117,8 +118,9 @@ def encode(params: dict, cfg: WhisperConfig, frames: torch.Tensor
         return x + L.mlp(lp["mlp"], h)
 
     body = L.block_remat(body, cfg)
+    x = shd.constrain(x, "carry")
     for i in range(cfg.n_layers):
-        x = body(L.block_view(params["enc"], i), x)
+        x = shd.constrain(body(L.block_view(params["enc"], i), x), "carry")
     return L.layernorm(params["enc_norm"], x)
 
 
@@ -151,9 +153,10 @@ def decode_train(params: dict, cfg: WhisperConfig, tokens: torch.Tensor,
     enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32,
                            device=tokens.device)
     body = L.block_remat(_dec_layer, cfg)
+    x = shd.constrain(x, "carry")
     for i in range(cfg.n_layers):
-        x = body(L.block_view(params["dec"], i), cfg, x, positions, enc_out,
-                 enc_pos)
+        x = shd.constrain(body(L.block_view(params["dec"], i), cfg, x,
+                               positions, enc_out, enc_pos), "carry")
     return L.layernorm(params["dec_norm"], x)
 
 

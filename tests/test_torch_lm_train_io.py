@@ -320,10 +320,15 @@ def test_mode_lm_trains_every_family_on_the_cpu(capsys):
     assert lines[-1].startswith("[lm] final loss ")
 
 
-def test_mode_lm_on_the_cpu_killed_and_resumed_is_bitwise():
+def test_mode_lm_on_the_cpu_killed_and_resumed_is_bitwise(monkeypatch):
     """The CLI run as its own process, killed once its step-3 checkpoint is
     committed, and rerun: it resumes from step 3 and ends with the bits
-    of an uninterrupted run (``lm_train_smoke.cli_resume``)."""
+    of an uninterrupted run (``lm_train_smoke.cli_resume``). The processes
+    run with one OpenMP / MKL thread, as this one does: a thread a core
+    beside the other test workers leaves each small op waiting on
+    descheduled threads."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("MKL_NUM_THREADS", "1")
     out = LTS.cli_resume(CPU, "cpu", dict(arch="qwen3_8b", steps=6,
                                           ckpt_every=3, batch=2, seq=64))
     assert out == {"resumed": True, "equal": True}
@@ -403,6 +408,7 @@ def test_train_qwen_at_smoke_width_holds_remat_resume_and_the_plant():
     out = LTS.train_qwen(configs.get("qwen3_8b").smoke_config(), CPU, "cpu",
                          dict(batch=1, seq=64, steps=3, ckpt_after=2))
     assert out["remat_equal"] and out["steps_equal"] and out["resume_equal"]
+    assert out["elastic_equal"]
     assert out["one_block_err"] < 1e-5
     assert out["planted_err"] > LTS.BF16_GRAD_REL
 

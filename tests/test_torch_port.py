@@ -146,7 +146,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         " 'repro_torch.configs.qwen3_8b', 'repro_torch.serving.lm_serve']\n"
         "assert all(m in sys.modules for m in lm), lm\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
-    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC)}
+    env = {**os.environ, "PYTHONPATH": os.path.abspath(SRC),
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

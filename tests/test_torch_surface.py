@@ -44,6 +44,9 @@ from repro_torch.serving.engine import EngineConfig, StreamingEngine
 torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
+#: the environment of a subprocess that runs the port on the CPU: one
+#: OpenMP / MKL thread, as this process runs with ``set_num_threads(1)``
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 F = 16                  # f_mem = f_time = f_emb
 B = 15                  # batch size
 N_BATCHES = 20
@@ -446,7 +449,12 @@ def test_serve_cli_serves_gdelt_on_cpu(tier, resolved, capsys):
 
 
 def test_streaming_example_runs_on_cpu():
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    # one intra-op thread in the example's process: with the default (a
+    # thread a core) and the other test workers on those cores, every
+    # small op's thread team waits for descheduled threads, and the same
+    # run takes over 600 s instead of ~10 s
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           **ONE_THREAD}
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples",
                                       "streaming_inference_torch.py"),
