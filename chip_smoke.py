@@ -128,6 +128,14 @@ without them, and on any failed check. In order it:
     the guard's cost a round (bare, guarded at ``check_every = 1``, the
     whole stack); every kernel's launches in the phase checked against
     the tiers' counts;
+12b. the launch-tooling phase (``run_dryrun``): one Wikipedia-path step
+    (B = 200, paper width) traced by ``launch/hlo_analysis.step_traffic``
+    on the staged and fused tiers with the card's tensors: the trace must
+    show 3 and 1 kernel launches (the reference's counts), equal to the
+    ``ops.LAUNCHES`` deltas, and the same bytes as the step traced on the
+    CPU; then the qwen3_8b ``decode_32k`` production cell of the dry run
+    (``launch/dryrun.py``) over ``cuda``-typed fake devices, which must
+    trace; at most ``DRYRUN_BUDGET_S`` seconds;
 13. the LM phase (``launch/lm_smoke.py``), after the TGN phases' tensors
     are freed: every registered architecture at its ``smoke_config()`` on
     the card against the same weights on the CPU (prefill logits; decode
@@ -172,7 +180,10 @@ without them, and on any failed check. In order it:
     ``elastic.resume`` onto the card's host mesh in ``tp``, its parameters
     remeshed to the ``fsdp2d`` specs, and step 3 from there bitwise, ms a
     step, tokens/s and peak memory beside the
-    roofline bound; ``launch/train.py --mode lm`` killed after its step-3
+    roofline bound, and beside the dry run's trace of the step (its
+    product GFLOP, bound and predicted peak; the measured peak must lie
+    within 0.9-1.5 times the prediction); mamba2-130m's traced bound beside
+    its ms a step; ``launch/train.py --mode lm`` killed after its step-3
     checkpoint and rerun, its final state bitwise an uninterrupted run's;
 14. prints each run's latency/throughput summary;
 15. prints one ``{"kernels": [...]}`` line (with ``window_launches``,
@@ -226,6 +237,10 @@ FLEET_SWEEP = (1, 2, 4, 8, 16)
 FABRIC_PAIRS = 24            # paired rounds timing a mesh against one device
 CPU_STEPS = 3                # training steps held to the CPU's
 LM_TRAIN_TIMEOUT_S = 700     # the LM-training phase's process (~260 s)
+#: kernel launches of one Wikipedia-path step on each kernel tier, the
+#: reference's (tests/test_kernels.py::test_fused_step_is_one_kernel_launch)
+STEP_LAUNCHES = {"staged": 3, "fused": 1}
+DRYRUN_BUDGET_S = 120        # the launch-tooling phase
 # the card's and the CPU's losses: fp32 sums in other orders (and atomic
 # scatters in the card's backward), three chained AdamW steps
 STEP_LOSS_RTOL = 1e-4
@@ -1629,6 +1644,55 @@ def run_training(ops, mp, g_full, dev) -> None:
                           TT._dt_samples(g, train_sl))
 
 
+def run_dryrun(mp, g, cfg, params, dev, card: str) -> float:
+    """The launch-tooling phase (12b in the module docstring); returns its
+    seconds."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    _, cpu_params = mp.model(g, mp.STUDENT, "cpu")
+    for tier in ("staged", "fused"):
+        on_card = mp.step_traffic(g, cfg, params, tier, dev)
+        on_cpu = mp.step_traffic(g, cfg, cpu_params, tier, "cpu")
+        traced = on_card["kernel_launches"]
+        counted = {n: c for n, c in on_card["launches"].items() if c}
+        print(f"step traffic {tier}: {on_card['bytes']:.0f} bytes a step "
+              f"(materialized intermediates, kernels opaque; the CPU's "
+              f"trace {on_cpu['bytes']:.0f}), kernel launches traced "
+              f"{traced}, counted {counted}, the reference's "
+              f"{STEP_LAUNCHES[tier]}; top kinds "
+              f"{dict(list(on_card['bytes_by_kind'].items())[:4])}; on "
+              f"{card}", flush=True)
+        check(traced == counted, f"step traffic {tier}: traced launches "
+              "equal the counted ones")
+        check(sum(traced.values()) == STEP_LAUNCHES[tier]
+              and set(traced) == set(TIER_KERNELS[tier]),
+              f"step traffic {tier}: the reference's launch count")
+        check(on_card["bytes"] == on_cpu["bytes"]
+              and on_cpu["kernel_launches"] == traced,
+              f"step traffic {tier}: the card's trace equals the CPU's")
+    del cpu_params
+    try:
+        rec = dryrun.run_cell("qwen3_8b", "decode_32k", device="cuda")
+    finally:
+        dryrun.destroy_world()
+    print(f"dry run qwen3_8b/decode_32k/1pod on cuda-typed fake devices: "
+          f"{rec['status']}, traced in {rec.get('trace_s')} s, per device "
+          f"{rec['per_device']['flops'] / 1e9:.3f} GFLOP, "
+          f"{rec['per_device']['bytes'] / 1e9:.3f} GB, collectives "
+          f"{rec['per_device']['collective_bytes'] / 1e9:.4f} GB "
+          f"{rec['per_device']['collectives_by_op']}, peak "
+          f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB (fits "
+          f"{rec['fits']}), bound {rec['roofline']['bound']}, folds "
+          f"{rec['folds']}, replicated {rec['replicated_ops']}; on {card}",
+          flush=True)
+    check(rec["status"] == "ok", "dry run qwen3_8b/decode_32k on cuda")
+    took = time.perf_counter() - t0
+    print(f"launch-tooling phase: {took:.1f} s (budget {DRYRUN_BUDGET_S} s)"
+          f"; on {card}", flush=True)
+    check(took <= DRYRUN_BUDGET_S, "the launch-tooling phase's budget")
+    return took
+
+
 def run_lm_training(card: str) -> None:
     """The LM-training phase, ``python -m repro_torch.launch.lm_train_smoke``
     in a process of its own: its deterministic cuBLAS needs a fixed
@@ -1736,6 +1800,7 @@ def main() -> int:
         row["fleet_launches"] = counts[name]
     fabric = run_fabric(ops, mp, g, dev)
     serving = run_serving_stack(ops, mp, g, dev, card)
+    run_dryrun(mp, g, cfg, params, dev, card)
 
     # the LM phase: the TGN phases' device tensors go first (qwen3-8b's
     # fp32 parameters take 32.8 GB)

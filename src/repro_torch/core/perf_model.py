@@ -32,14 +32,15 @@ from repro_torch.utils import FrozenConfig
 @dataclasses.dataclass(frozen=True)
 class ChipSpec(FrozenConfig):
     """A chip's published peaks: FLOP/s per precision (dense, no
-    sparsity), device-memory bytes/s, and bytes/s over its links to the
-    other chips."""
+    sparsity), device-memory bytes/s, bytes/s over its links to the other
+    chips, and its device memory."""
     name: str
     fp32_flops: float        # float32 outside the tensor cores
     tf32_flops: float        # TF32 on the tensor cores
     bf16_flops: float        # bf16 on the tensor cores
     hbm_bytes_per_s: float
     link_bytes_per_s: float
+    hbm_bytes: float         # device memory
 
     def peak_flops(self, precision: str) -> float:
         peaks = {"fp32": self.fp32_flops, "tf32": self.tf32_flops,
@@ -60,6 +61,7 @@ H100_SXM = ChipSpec(
     bf16_flops=989e12,         # H100 SXM5: BF16 tensor core, 1,979 sparse
     hbm_bytes_per_s=3.35e12,   # H100 SXM5: 80 GB HBM3 at 3.35 TB/s
     link_bytes_per_s=900e9,    # H100 SXM5: NVLink 4, 900 GB/s a card
+    hbm_bytes=80e9,            # H100 SXM5: 80 GB HBM3
 )
 
 

@@ -35,7 +35,8 @@ shardings=)`` calls ``place`` leaf by leaf.
 The models call ``constrain(x, "carry")`` at block boundaries. With no
 rules installed it is the identity; with rules it resolves the rule's
 spec against the mesh the rules were installed with (``activation_spec``)
-and still returns ``x`` itself: the port runs each model on one device.
+and returns ``x`` itself, or, given a DTensor (``launch/dryrun.py``), the
+DTensor redistributed to that spec (``placements``).
 """
 from __future__ import annotations
 
@@ -391,9 +392,31 @@ def activation_spec(shape, kind: str) -> tuple | None:
 
 
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
-    """``x`` itself: the identity without rules; with rules the spec is
-    resolved (``activation_spec``) and the activation, on one device,
-    already holds every piece of it."""
+    """The identity without rules. With rules the spec is resolved
+    (``activation_spec``): a DTensor (the dry run's) is redistributed to
+    it, as ``with_sharding_constraint`` pins the reference's layout; a
+    plain tensor, on one device, already holds every piece of it and is
+    returned itself."""
     if _ACTIVATION_RULES:
-        activation_spec(tuple(x.shape), kind)
+        spec = activation_spec(tuple(x.shape), kind)
+        if spec is not None and type(x) is not torch.Tensor:
+            from torch.distributed.tensor import DTensor
+            if isinstance(x, DTensor):
+                return x.redistribute(x.device_mesh, placements(
+                    spec, x.device_mesh.mesh_dim_names))
     return x
+
+
+def placements(spec: tuple, axis_names) -> list:
+    """``spec`` as DTensor placements over a mesh with ``axis_names``:
+    ``Shard(dim)`` on each mesh dimension the spec names for ``dim``,
+    ``Replicate()`` on every other."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(axis_names)
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        for a in _axes(ax):
+            if a in axis_names:
+                out[axis_names.index(a)] = Shard(dim)
+    return out

@@ -19,6 +19,11 @@ launches its kernels (``fused_step``'s three back-to-back kernels are
 one call, as in the reference), so a run can show that its main path went
 through the kernels.
 
+Under the op-trace recorder (``launch/hlo_analysis.record``) each entry
+point is one opaque entry charged the tensors its kernel reads and the
+results it writes, on the card and on the CPU alike (the plain version's
+inner ops are not recorded); without one it costs one module-level test.
+
 Rows are independent in every kernel: an output row depends only on its
 own inputs. So a cohort of T tenants (``TGNPipeline.batched_step``) calls
 each entry point once over the T·2B rows of all its tenants, with vertex
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import optrace
 from repro_torch.utils import NEG_INF
 
 #: kernel launches per entry point since the last ``reset_launch_counts``.
@@ -306,6 +312,9 @@ def lut_encode_plain(dt: torch.Tensor, bounds: torch.Tensor,
 def lut_encode(dt: torch.Tensor, packed: dict) -> torch.Tensor:
     """dt (...,) -> (..., D): the packed table's row of bucket(dt)."""
     bounds, table = packed["bounds"], packed["table"]
+    if optrace.ACTIVE.recorder is not None:
+        return optrace.ACTIVE.recorder.kernel(
+            "lut_encode", lut_encode, (dt, packed), (dt, bounds, table))
     E, D = table.shape
     shape = dt.shape
     flat = dt.reshape(-1)
@@ -358,6 +367,10 @@ def gru_cell(mail: torch.Tensor, s: torch.Tensor, packed: dict,
     pack_gru_params, ``extra`` optional (n, 3M) additive input-gate rows
     (the LUT-folded time rows). Returns (n, M)."""
     w_i, w_h, b_i, b_h = (packed[k] for k in ("w_i", "w_h", "b_i", "b_h"))
+    if optrace.ACTIVE.recorder is not None:
+        return optrace.ACTIVE.recorder.kernel(
+            "gru_cell", gru_cell, (mail, s, packed, extra),
+            (mail, s, extra, packed["w_tc"], b_i, b_h))
     if mail.device.type == "cpu":
         return gru_cell_plain(mail, s, w_i, w_h, b_i, b_h, extra)
     n, F = mail.shape
@@ -421,6 +434,10 @@ def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
     bool. Returns (B, D)."""
     w_v, b_v, bounds, table = (packed[n] for n in
                                ("w_v", "b_v", "bounds", "table"))
+    if optrace.ACTIVE.recorder is not None:
+        return optrace.ACTIVE.recorder.kernel(
+            "sat_aggregate", sat_aggregate, (kv, dt, logits, valid, packed),
+            (kv, dt, logits, valid, packed["w_tc"], b_v, bounds, table))
     if kv.device.type == "cpu":
         return sat_aggregate_plain(kv, dt, logits, valid, w_v, b_v, bounds,
                                    table)
@@ -450,6 +467,11 @@ def sat_aggregate(kv: torch.Tensor, dt: torch.Tensor, logits: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Fused single-pass step
 # ---------------------------------------------------------------------------
+
+
+#: the packed leaves ``fused_step``'s kernels read
+FUSED_READS = ("w_tc", "b_i", "b_h", "g_bounds", "g_table", "wv_tc", "b_v",
+               "s_bounds", "s_table", "wout_tc", "b_out")
 
 
 def fused_step_plain(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
@@ -496,6 +518,12 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
     only the addressed rows are read. Returns ``(h (R, f_emb),
     s_upd (R, f_mem))``.
     """
+    args = (vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
+            sel_logits, sel_valid, memory, mail, edge_feats)
+    if optrace.ACTIVE.recorder is not None:
+        return optrace.ACTIVE.recorder.kernel(
+            "fused_step", fused_step, args + (packed,), args + tuple(
+                packed[n] for n in FUSED_READS))
     if vids.device.type == "cpu":
         return fused_step_plain(vids, sel_ids, sel_eid, hit, dt_mail,
                                 mail_ok, sel_dt, sel_logits, sel_valid,
@@ -516,9 +544,7 @@ def fused_step(vids, sel_ids, sel_eid, hit, dt_mail, mail_ok, sel_dt,
                 sel_dt=(sel_dt, F32), sel_logits=(sel_logits, F32),
                 sel_valid=(sel_valid, BOOL), memory=(memory, F32),
                 mail=(mail, F32), edge_feats=(edge_feats, F32),
-                **{n: (p[n], F32) for n in
-                   ("w_tc", "b_i", "b_h", "g_bounds", "g_table", "wv_tc",
-                    "b_v", "s_bounds", "s_table", "wout_tc", "b_out")})
+                **{n: (p[n], F32) for n in FUSED_READS})
     _check_shape("vids", vids, (R,))
     for name, t in (("sel_eid", sel_eid), ("hit", hit), ("sel_dt", sel_dt),
                     ("sel_logits", sel_logits), ("sel_valid", sel_valid)):

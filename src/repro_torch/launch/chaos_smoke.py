@@ -120,9 +120,11 @@ def run(g, cfg, params, device, rows: int, *, log=print) -> dict:
         if c0 is None:                           # the layout is built
             c0 = mgr.compile_counters()
         if r % 2 == 0:                           # snapshot cadence; never
-            for tid in mgr.tenants:              # a quarantined tenant
-                if not mgr.is_quarantined(tid):
-                    writer.submit(mgr, tid, step=r)
+            for tid in mgr.tenants:              # a quarantined tenant;
+                # a submission the writer skips (the tenant's previous
+                # write still in flight) is no snapshot to restore from
+                if (not mgr.is_quarantined(tid)
+                        and writer.submit(mgr, tid, step=r)):
                     snaps.setdefault(tid, {})[r] = mgr.state_of(tid)
     mgr.sync()
     writer.close()
@@ -153,12 +155,18 @@ def run(g, cfg, params, device, rows: int, *, log=print) -> dict:
                     if t1 in b and k > STALL_AT]
     want_t1 = _solo(g, cfg, params, device, res_v, "staged",
                     snaps[t1][restored_from], served_after)
-    ok["sick tenant quarantined, restored, continued"] = (
-        not view["quarantined"] and view["restores"] == 1
-        and view["last_reason"] == "nonfinite_state"
-        and rejects and {x[1:] for x in rejects} == {(t1, "quarantined")}
-        and len(log_t1) == ROUNDS - len(rejects) // rows
-        and bitwise(mgr.state_of(t1), want_t1))
+    sick = {
+        "restored": (not view["quarantined"] and view["restores"] == 1
+                     and view["last_reason"] == "nonfinite_state"),
+        "only its ingest rejected": bool(rejects) and {
+            x[1:] for x in rejects} == {(t1, "quarantined")},
+        "rounds served": len(log_t1) == ROUNDS - len(rejects) // rows,
+        "state bitwise its solo replay": bitwise(mgr.state_of(t1), want_t1)}
+    ok["sick tenant quarantined, restored, continued"] = all(sick.values())
+    if not all(sick.values()):
+        log(f"chaos leg: the sick tenant's checks {sick}; view {view}; "
+            f"{len(log_t1)} rounds logged, {len(rejects)} rejects, restored "
+            f"from round {restored_from}", flush=True)
 
     # the degraded cohort: a lane move fused -> staged, states carried
     c = mgr.compile_counters()

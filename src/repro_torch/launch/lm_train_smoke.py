@@ -15,7 +15,8 @@ b) mamba2-130m at ``config()``, uncut (bf16 compute on fp32 weights): 5
    the first loss within 2 of ln(vocab); the first step's loss and
    gradients at 1 x 256 against the CPU, in bf16 and in fp32; the
    reference's unmasked exponent (``lm_smoke.PLANTS``) planted must make
-   the gradients non-finite;
+   the gradients non-finite; its bound from the traced step (the SSD's
+   FLOPs counted by ``launch/hlo_analysis.py``) beside the ms a step;
 c) qwen3-8b at its published width, its depth cut to 4 layers: the first
    step's gradients with ``attn_remat`` on and off (bitwise), and with
    q_block = k_block = S (one block) against the chunked ones, with the
@@ -23,9 +24,13 @@ c) qwen3-8b at its published width, its depth cut to 4 layers: the first
    setting (bitwise); a checkpoint written after step 2 and restored,
    whose step 3 is bitwise the uninterrupted one; the same checkpoint
    restored by ``elastic.resume`` onto the host mesh in ``tp`` and its
-   parameters remeshed to the ``fsdp2d`` specs, step 3 again bitwise; ms a step, tokens/s and
-   peak memory beside the roofline bound; one step timed with the
-   deterministic algorithms off;
+   parameters remeshed to the ``fsdp2d`` specs, step 3 again bitwise; ms
+   a step, tokens/s and peak memory beside the roofline bound; one step
+   timed with the deterministic algorithms off; the dry run's trace of
+   the same step on a 1 x 1 mesh (``traced_step``): its bf16 and fp32
+   product GFLOP beside ``step_bound_ms``'s, its bound, and its predicted
+   peak beside the measured one (on the card the measured peak must lie
+   within 0.9-1.5 times the prediction);
 d) ``launch/train.py --mode lm`` killed once its step-3 checkpoint is
    written, and rerun: its final checkpoint bitwise an uninterrupted
    run's.
@@ -46,6 +51,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs, tree
@@ -53,6 +59,8 @@ from repro_torch.core import perf_model
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import compression, elastic
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.tgn_sharding import TenantMesh
+from repro_torch.launch import dryrun
 from repro_torch.launch import main_path as mp
 from repro_torch.launch import mesh
 from repro_torch.launch import train as train_cli
@@ -253,6 +261,33 @@ def smoke_all(dev, card: str) -> dict:
     return out
 
 
+#: the measured peak of a step over the dry run's prediction
+#: (``traced_step``): the allocator's block rounding and cuBLAS's
+#: workspaces come on top of the live storages the trace follows
+PEAK_RATIO = (0.9, 1.5)
+
+
+def traced_step(cfg, B: int, S: int, dev) -> dict:
+    """The dry run's record (``launch/dryrun.run_cell``) of one training
+    step of ``cfg`` at B x S on a 1 x 1 mesh of ``dev``'s type: the
+    products' FLOPs by dtype, the roofline bound on ``H100_SXM`` and the
+    predicted peak memory, from the traced ops (``meta`` tensors, nothing
+    allocated)."""
+    one = TenantMesh(np.asarray([[torch.device("meta")]], dtype=object),
+                     ("data", "model"))
+    try:
+        return dryrun.run_cell(cfg.arch.removesuffix("_smoke"), "train_4k",
+                               override_cfg=cfg, mesh=one,
+                               seq_len=S, global_batch=B, device=dev.type)
+    finally:
+        dryrun.destroy_world()
+
+
+def traced_bound_ms(rec: dict) -> float:
+    rl = rec["roofline"]
+    return max(rl["compute_s"], rl["memory_s"], rl["collective_s"]) * 1e3
+
+
 # ---------------------------------------------------------------------------
 # b) mamba2-130m at its published config
 # ---------------------------------------------------------------------------
@@ -341,7 +376,24 @@ def train_mamba(cfg, dev, card: str, spec: dict = mp.LM_TRAIN_MAMBA
     check(f32_loss <= LOSS_RTOL and f32_grad <= F32_GRAD_REL,
           f"{cfg.arch}: float32 loss and gradients against the CPU")
     del params, opt
+    t0 = time.perf_counter()
+    rec = traced_step(cfg, B, S, dev)
+    fl = rec["per_device"]["flops_by_dtype"]
+    traced_ms = traced_bound_ms(rec)
+    print(f"lm train {cfg.arch} traced step ({B} x {S}, "
+          f"launch/dryrun.py on a 1 x 1 mesh, {time.perf_counter() - t0:.1f}"
+          f" s): products {fl.get('bf16', 0.0) / 1e9:.1f} GFLOP bf16 and "
+          f"{fl.get('f32', 0.0) / 1e9:.1f} GFLOP fp32 (the SSD's einsums "
+          f"among them), {rec['per_device']['flops'] / 1e9:.1f} GFLOP in "
+          f"all, {rec['per_device']['bytes'] / 1e9:.1f} GB moved; bound "
+          f"{traced_ms:.1f} ms ({rec['roofline']['bound']}) against "
+          f"{med:.1f} ms measured a step; predicted peak "
+          f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB against "
+          f"{peak:.2f} GiB measured; folds {rec['folds']}; on {card}",
+          flush=True)
+    check(rec["status"] == "ok", f"{cfg.arch}: the traced step")
     return {"losses": losses, "ms": ms, "peak_gib": peak,
+            "traced_bound_ms": traced_ms,
             "cpu_loss": cpu_loss, "cpu_grad": cpu_grad, "f32_loss": f32_loss,
             "f32_grad": f32_grad,
             "planted_nonfinite": bad_planted}
@@ -535,6 +587,32 @@ def train_qwen(cfg, dev, card: str, spec: dict = mp.LM_TRAIN_QWEN) -> dict:
         out[f"ms_remat{int(key)}"] = med
         out[f"bound_ms_remat{int(key)}"] = bound
         out[f"peak_gib_remat{int(key)}"] = r["peak_gib"]
+    t0 = time.perf_counter()
+    rec = traced_step(cfg, B, S, dev)
+    fl = rec["per_device"]["flops_by_dtype"]
+    bound, g16, g32, _ = step_bound_ms(cfg, B, S, False)
+    pred = rec["memory"]["peak_bytes"] / 2**30
+    ratio = a["peak_gib"] / pred
+    print(f"lm train {cfg.arch} traced step (attn_remat off, {B} x {S}, "
+          f"launch/dryrun.py on a 1 x 1 mesh, {time.perf_counter() - t0:.1f}"
+          f" s): products {fl.get('bf16', 0.0) / 1e9:.1f} GFLOP bf16 "
+          f"(step_bound_ms {g16:.1f}) and {fl.get('f32', 0.0) / 1e9:.1f} "
+          f"GFLOP fp32 (step_bound_ms {g32:.1f}), "
+          f"{rec['per_device']['flops'] / 1e9:.1f} GFLOP in all, "
+          f"{rec['per_device']['bytes'] / 1e9:.1f} GB moved; bound "
+          f"{traced_bound_ms(rec):.1f} ms ({rec['roofline']['bound']}; "
+          f"step_bound_ms {bound:.1f} ms) against "
+          f"{out['ms_remat0']:.1f} ms measured; predicted peak {pred:.2f} GiB"
+          f", measured {a['peak_gib']:.2f} GiB (ratio {ratio:.3f}, limit "
+          f"{PEAK_RATIO[0]}-{PEAK_RATIO[1]}); folds {rec['folds']}; on "
+          f"{card}", flush=True)
+    check(rec["status"] == "ok", f"{cfg.arch}: the traced step")
+    if dev.type == "cuda":
+        check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+              f"{cfg.arch}: measured peak within {PEAK_RATIO} of the "
+              "traced prediction")
+    out["traced_bound_ms"] = traced_bound_ms(rec)
+    out["predicted_peak_gib"] = pred
     print(f"lm train {cfg.arch}: the {n} steps with attn_remat on and off "
           f"bitwise {steps_equal}; checkpoint after step {at} ({gb:.1f} GB: "
           f"saved in {ckpt_s:.1f} s, restored in {restore_s:.1f} s), its "

@@ -189,6 +189,32 @@ def fleet_feeds(g, n_tenants: int, rounds: int) -> list:
             for i in range(n_tenants)]
 
 
+def step_traffic(g, cfg, params, tier: str, device) -> dict:
+    """``launch.hlo_analysis.step_traffic`` of one ``TGNPipeline.step`` on
+    ``tier`` at ``device``: the first batch of B edges of ``g`` on a fresh
+    state, the parameters, prepared tables, state, batch and edge features
+    passed as the step's inputs (the reference's jaxpr takes them as its
+    invars and constvars). Adds ``launches``: the ``kernels.ops.LAUNCHES``
+    deltas of the traced step."""
+    from repro_torch.data import stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis
+
+    pipe = pl.build_pipeline(cfg, use_kernels=tier, device=device)
+    aux = pipe.prepare(params)
+    b = next(iter(stream.fixed_count(g, B, window=slice(0, B))))
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (b.src, b.dst, b.eid, b.ts, b.valid))
+    ef = torch.as_tensor(g.edge_feats, device=device)
+    before = ops.launch_counts()
+    out = hlo_analysis.step_traffic(
+        lambda p, a, s, bt, e: pipe.step(p, a, s, bt, e), params, aux,
+        pipe.init_state(), batch, ef)
+    out["launches"] = {n: c - before[n]
+                       for n, c in ops.launch_counts().items()}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the language models' serving path (chip_smoke's LM phase)
 # ---------------------------------------------------------------------------

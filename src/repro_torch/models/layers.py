@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.obs import optrace
+
 NEG_INF = -2.3819763e38  # max bf16-representable negative; avoids inf-inf NaNs
 
 
@@ -105,7 +107,8 @@ def remat(fn, mode: str = "nothing"):
         if mode == "dots":
             kwargs["context_fn"] = functools.partial(
                 ckpt.create_selective_checkpoint_contexts, _save_dots)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return ckpt.checkpoint(optrace.pinned(fn), *args,
+                               use_reentrant=False, **kwargs)
 
     return wrapped
 
@@ -575,7 +578,7 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
     if cfg.window is not None and kv_x is None:
         # windowed path: one K slice of width qb + window per query block
         Wk = min(cfg.window + qb, Sk)
-        for i in range(n_q):
+        for i in optrace.trips("attn_q", n_q):
             qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, kv, g, hd)
             qpos_i = positions[:, i * qb:(i + 1) * qb]
             start = min(max(i * qb + qb - Wk, 0), Sk - Wk)
@@ -593,7 +596,7 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
             l = torch.zeros((B, kv, g, qb), dtype=torch.float32, device=dev)
             acc = torch.zeros((B, kv, g, qb, hd), dtype=torch.float32,
                               device=dev)
-            for j in range(n_k):
+            for j in optrace.trips("attn_k", n_k):
                 sl = slice(j * kb, (j + 1) * kb)
                 s = score_block(qi, k_[:, sl], qpos_i, kpos_[:, sl],
                                 ok_[sl])                   # (B,kv,g,qb,kb)
@@ -603,11 +606,12 @@ def chunked_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
 
         if remat_qblocks:
             q_inner = remat(q_inner)
-        for i in range(n_q):
+        for i in optrace.trips("attn_q", n_q):
             qi = q[:, i * qb:(i + 1) * qb].reshape(B, qb, kv, g, hd)
             qpos_i = positions[:, i * qb:(i + 1) * qb]
             blocks.append(q_inner(qi, qpos_i, k, v, k_pos, kv_ok))
 
+    blocks = optrace.fill(blocks, n_q)
     out = torch.cat(blocks, dim=1).reshape(B, S, h * hd)
     return _out_proj(p, out[:, :S_orig], dt)
 
@@ -682,8 +686,10 @@ def _xent_sum(hi: torch.Tensor, ti: torch.Tensor, w: torch.Tensor
     """Summed next-token cross-entropy of one sequence chunk, fp32."""
     logits = (hi @ w.to(hi.dtype)).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, ti[..., None].long())[..., 0]
-    return torch.sum(lse - gold)
+    # (B, c, 1) until the sum: over a vocab-sharded DTensor (the dry run)
+    # the gathered column is a masked partial, reducible at its own shape
+    gold = torch.gather(logits, -1, ti[..., None].long())
+    return torch.sum(lse[..., None] - gold)
 
 
 def chunked_xent(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,

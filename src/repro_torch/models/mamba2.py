@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
+from repro_torch.obs import optrace
 from repro_torch.utils import FrozenConfig
 
 
@@ -172,8 +173,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     causal = qi[:, None] >= qi[None, :]
 
     ys = []
-    for s0 in range(0, Lx, Q):
-        sl = slice(s0, s0 + Q)
+    for ci in optrace.trips("ssd_chunk", Lx // Q):
+        sl = slice(ci * Q, (ci + 1) * Q)
         x_c, dt_c, b_c, c_c = x[:, sl], dt[:, sl], b[:, sl], c[:, sl]
         la = dt_c * a                                # (B,Q,H) log-decays <0
         l = torch.cumsum(la, dim=1)                  # inclusive
@@ -199,7 +200,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         h = h * carry_dec[..., None, None] + torch.einsum(
             "bqhn,bqhp,bqh->bhpn", bh, x_c, w_state)
         ys.append(y_inter + y_intra)
-    return torch.cat(ys, dim=1), h
+    return torch.cat(optrace.fill(ys, Lx // Q), dim=1), h
 
 
 def ssd_ref(x, dt, a, b, c):
@@ -277,7 +278,7 @@ def backbone(params: dict, cfg: MambaConfig, tokens: torch.Tensor
 
     body = L.block_remat(body, cfg)
     x = shd.constrain(x, "carry")
-    for i in range(cfg.n_layers):
+    for i in optrace.trips("layers", cfg.n_layers):
         x = shd.constrain(body(L.block_view(params["layers"], i), x),
                           "carry")
     return L.rmsnorm(params["final_norm"], x)
@@ -313,7 +314,7 @@ def decode_step(params: dict, cfg: MambaConfig, token: torch.Tensor,
         # dtype, so from the first step on its conv cache has that dtype
         caches["conv"] = caches["conv"].to(x.dtype)
     conv, ssm = caches["conv"], caches["ssm"]
-    for i in range(cfg.n_layers):
+    for i in optrace.trips("layers", cfg.n_layers):
         x, nc, ns = _layer_fwd(L.block_view(params["layers"], i), cfg, x,
                                conv[i], ssm[i], streaming=True)
         conv[i].copy_(nc)

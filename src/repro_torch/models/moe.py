@@ -62,7 +62,8 @@ def build_dispatch(expert_idx: torch.Tensor, n_experts: int, cap: int):
     order = torch.sort(flat_e, stable=True).indices        # group by expert
     sorted_e = flat_e[order]
     # rank within expert group
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # tokens per expert (bincount's, at a shape the ids cannot change)
+    counts = (flat_e[:, None] == torch.arange(n_experts, device=dev)).sum(0)
     starts = torch.cumsum(counts, 0) - counts              # exclusive prefix
     rank_sorted = torch.arange(T * k, device=dev) - starts[sorted_e]
     rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)

@@ -30,6 +30,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
 from repro_torch.models.mamba2 import _causal_conv  # shared depthwise conv
+from repro_torch.obs import optrace
 from repro_torch.utils import FrozenConfig
 
 C_RGLRU = 8.0
@@ -134,10 +135,10 @@ def rglru_scan(p: dict, x: torch.Tensor, h0: torch.Tensor | None = None):
     a, b = _gates(p, x.float())
     h = (torch.zeros_like(b[:, 0]) if h0 is None else h0.float())
     hs = []
-    for t in range(x.shape[1]):
+    for t in optrace.trips("rglru_time", x.shape[1]):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
-    hs = torch.stack(hs, dim=1)
+    hs = torch.stack(optrace.fill(hs, x.shape[1]), dim=1)
     return hs.to(x.dtype), hs[:, -1]
 
 
@@ -244,7 +245,7 @@ def backbone(params: dict, cfg: GriffinConfig, tokens: torch.Tensor
     # the reference checkpoints the scanned blocks, not the tail
     body = L.block_remat(body, cfg)
     x = shd.constrain(x, "carry")
-    for b in range(cfg.n_full_blocks):
+    for b in optrace.trips("blocks", cfg.n_full_blocks):
         x = shd.constrain(body(L.block_view(params["blocks"], b), x),
                           "carry")
     for i, kind in enumerate(cfg.tail):
@@ -326,7 +327,7 @@ def decode_step(params: dict, cfg: GriffinConfig, token: torch.Tensor,
     _conv_in_compute_dtype({k: v for k, v in caches.items() if k != "tail"},
                            x.dtype)
     _conv_in_compute_dtype(caches["tail"], x.dtype)
-    for b in range(cfg.n_full_blocks):
+    for b in optrace.trips("blocks", cfg.n_full_blocks):
         bp = L.block_view(params["blocks"], b)
         for i, kind in enumerate(cfg.pattern):
             x = _layer_decode(bp[f"l{i}"], cfg, kind, x,

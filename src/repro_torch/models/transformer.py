@@ -25,6 +25,7 @@ import torch
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.obs import optrace
 from repro_torch.utils import FrozenConfig
 
 
@@ -201,7 +202,7 @@ def backbone(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     body = _remat(_block_fwd, cfg)
     x = shd.constrain(x, "carry")
-    for b in range(cfg.n_blocks):
+    for b in optrace.trips("blocks", cfg.n_blocks):
         x = shd.constrain(
             body(L.block_view(params["blocks"], b), cfg, x, positions),
             "carry")
@@ -244,7 +245,7 @@ def decode_step(params: dict, cfg: LMConfig, token: torch.Tensor,
     """token (B, 1) int32; caches from init_caches (all at the same pos),
     updated in place. Returns (logits (B, vocab) fp32, caches)."""
     x = _embed(params, cfg, token)
-    for b in range(cfg.n_blocks):
+    for b in optrace.trips("blocks", cfg.n_blocks):
         bp = L.block_view(params["blocks"], b)
         for i, kind in enumerate(cfg.pattern):
             lp, c = bp[f"l{i}"], L.block_view(caches[f"l{i}"], b)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
+from repro_torch.obs import optrace
 from repro_torch.utils import FrozenConfig
 
 
@@ -135,7 +136,7 @@ def backbone(params: dict, cfg: VisionLMConfig, tokens: torch.Tensor,
 
     body = L.block_remat(body, cfg)
     x = shd.constrain(x, "carry")
-    for b in range(cfg.n_blocks):
+    for b in optrace.trips("blocks", cfg.n_blocks):
         x = shd.constrain(body(L.block_view(params["blocks"], b), x),
                           "carry")
     return L.rmsnorm(params["final_norm"], x)
@@ -194,7 +195,7 @@ def decode_step(params: dict, cfg: VisionLMConfig, token: torch.Tensor,
     B = token.shape[0]
     x = L.embed(params["embed"], token, cfg.compute_dtype)
     kvh, hd = cfg.n_kv_heads, cfg.d_head
-    for b in range(cfg.n_blocks):
+    for b in optrace.trips("blocks", cfg.n_blocks):
         bp = L.block_view(params["blocks"], b)
         for i, kind in enumerate(cfg.pattern):
             lp = bp[f"l{i}"]

@@ -19,6 +19,7 @@ import torch
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import embed_init
+from repro_torch.obs import optrace
 from repro_torch.utils import FrozenConfig
 
 
@@ -119,7 +120,7 @@ def encode(params: dict, cfg: WhisperConfig, frames: torch.Tensor
 
     body = L.block_remat(body, cfg)
     x = shd.constrain(x, "carry")
-    for i in range(cfg.n_layers):
+    for i in optrace.trips("enc_layers", cfg.n_layers):
         x = shd.constrain(body(L.block_view(params["enc"], i), x), "carry")
     return L.layernorm(params["enc_norm"], x)
 
@@ -154,7 +155,7 @@ def decode_train(params: dict, cfg: WhisperConfig, tokens: torch.Tensor,
                            device=tokens.device)
     body = L.block_remat(_dec_layer, cfg)
     x = shd.constrain(x, "carry")
-    for i in range(cfg.n_layers):
+    for i in optrace.trips("dec_layers", cfg.n_layers):
         x = shd.constrain(body(L.block_view(params["dec"], i), cfg, x,
                                positions, enc_out, enc_pos), "carry")
     return L.layernorm(params["dec_norm"], x)
@@ -221,7 +222,7 @@ def decode_step(params: dict, cfg: WhisperConfig, token: torch.Tensor,
     pos0 = caches["self"]["pos"][0]
     x = x + _dec_positions(params, cfg, pos0[None]).to(x.dtype)[None]
     hd_, kvh = cfg.d_head, cfg.n_kv_heads
-    for i in range(cfg.n_layers):
+    for i in optrace.trips("dec_layers", cfg.n_layers):
         lp = L.block_view(params["dec"], i)
         h = L.layernorm(lp["ln1"], x)
         a, _ = L.decode_attention(lp["attn"], cfg.attn_cfg(), h,

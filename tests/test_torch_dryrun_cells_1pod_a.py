@@ -1,0 +1,23 @@
+"""The dry run"s cells on the (16, 16) one-pod mesh: gemma3_12b,
+mistral_nemo_12b, granite_3_8b, qwen3_8b, dbrx_132b; train_4k, prefill_32k,
+decode_32k, long_500k (see ``tests/torch_dryrun_cells.py``)."""
+import pytest
+
+from torch_dryrun_cells import check_cell, world  # noqa: F401
+
+
+@pytest.mark.parametrize("shape", (
+    "train_4k",
+    "prefill_32k",
+    "decode_32k",
+    "long_500k",
+))
+@pytest.mark.parametrize("arch", (
+    "gemma3_12b",
+    "mistral_nemo_12b",
+    "granite_3_8b",
+    "qwen3_8b",
+    "dbrx_132b",
+))
+def test_cell(arch, shape):
+    check_cell(arch, shape, multi_pod=False)

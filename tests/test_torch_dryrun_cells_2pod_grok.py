@@ -1,0 +1,11 @@
+"""The dry run"s cells on the (2, 16, 16) two-pod mesh: grok_1_314b;
+prefill_32k, decode_32k, long_500k (see ``tests/torch_dryrun_cells.py``)."""
+import pytest
+
+from torch_dryrun_cells import check_cell, world  # noqa: F401
+
+
+@pytest.mark.parametrize("shape", ("prefill_32k", "decode_32k", "long_500k"))
+@pytest.mark.parametrize("arch", ("grok_1_314b",))
+def test_cell(arch, shape):
+    check_cell(arch, shape, multi_pod=True)

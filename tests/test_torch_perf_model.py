@@ -58,7 +58,7 @@ def test_roofline_with_the_reference_constants_equals_the_reference():
     spec = pm.ChipSpec(name="reference constants", fp32_flops=1.0,
                        tf32_flops=1.0, bf16_flops=ref.PEAK_FLOPS,
                        hbm_bytes_per_s=ref.HBM_BW,
-                       link_bytes_per_s=ref.ICI_BW)
+                       link_bytes_per_s=ref.ICI_BW, hbm_bytes=1.0)
     for flops, nbytes, coll, links in itertools.product(
             (0.0, 3.2e9, 7.7e14), (0.0, 1.5e8, 2.1e12), (0.0, 4e6, 9e10),
             (1, 2, 4)):

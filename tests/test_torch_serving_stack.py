@@ -26,6 +26,7 @@ the CPU too.
 """
 import json
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -521,6 +522,23 @@ def test_serve_cli_stack_flags_on_cpu(tmp_path, capsys):
 def test_smokes_pass_on_cpu(smoke, capsys):
     assert smoke.main(["--device", "cpu"]) == 0
     assert "FAIL" not in capsys.readouterr().out
+
+
+def test_chaos_leg_passes_with_a_slow_snapshot_disk(monkeypatch, capsys):
+    """Each snapshot write takes a second, so the writer skips the sick
+    tenant's round-2 submission (its round-0 write, retried after the
+    injected IO fault, is still in flight) and the guard restores the
+    round-0 snapshot: the leg replays from the snapshot that was written,
+    not from the round it asked for."""
+    save = tcluster.ckpt.save
+
+    def slow_save(*args, **kwargs):
+        time.sleep(1.0)
+        return save(*args, **kwargs)
+    monkeypatch.setattr(tcluster.ckpt, "save", slow_save)
+    assert chaos_smoke.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and "restored from round" not in out
 
 
 @pytest.mark.parametrize("n, k", [(5, 0), (6, 1), (24, 7), (60, 22)])
