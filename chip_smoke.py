@@ -133,9 +133,14 @@ without them, and on any failed check. In order it:
     on the staged and fused tiers with the card's tensors: the trace must
     show 3 and 1 kernel launches (the reference's counts), equal to the
     ``ops.LAUNCHES`` deltas, and the same bytes as the step traced on the
-    CPU; then the qwen3_8b ``decode_32k`` production cell of the dry run
-    (``launch/dryrun.py``) over ``cuda``-typed fake devices, which must
-    trace; at most ``DRYRUN_BUDGET_S`` seconds;
+    CPU; then three production cells of the dry run
+    (``launch/dryrun.py``) at their published configs over ``cuda``-typed
+    fake devices: qwen3_8b ``decode_32k``, mamba2_130m ``prefill_32k`` and
+    gemma3_12b ``decode_32k`` on two pods, each of which must trace, its
+    collective bytes by kind printed, and in which no all-gather may take
+    a K/V cache leaf's shard (``distributed/partitioned.py`` keeps the
+    sequence-sharded caches in place); at most ``DRYRUN_BUDGET_S``
+    seconds;
 13. the LM phase (``launch/lm_smoke.py``), after the TGN phases' tensors
     are freed: every registered architecture at its ``smoke_config()`` on
     the card against the same weights on the CPU (prefill logits; decode
@@ -1644,10 +1649,35 @@ def run_training(ops, mp, g_full, dev) -> None:
                           TT._dt_samples(g, train_sl))
 
 
+#: the dry run's cells in the launch-tooling phase: (arch, shape, 2 pods)
+DRYRUN_CELLS = (("qwen3_8b", "decode_32k", False),
+                ("mamba2_130m", "prefill_32k", False),
+                ("gemma3_12b", "decode_32k", True))
+
+
+def _dryrun_cell(arch: str, shape: str, two_pods: bool):
+    """One production cell of the dry run on ``cuda``-typed fake devices:
+    its record, and its all-gathers of a K/V cache leaf's shard
+    (``dryrun.cache_gathers``)."""
+    import gzip
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json.gz")
+        try:
+            rec = dryrun.run_cell(arch, shape, multi_pod=two_pods,
+                                  device="cuda", save_hlo=path)
+        finally:
+            dryrun.destroy_world()
+        with gzip.open(path, "rt") as f:
+            ops = json.load(f)["ops"]
+    cell = dryrun.build_cell(arch, shape, multi_pod=two_pods)
+    return rec, dryrun.cache_gathers(cell, ops)
+
+
 def run_dryrun(mp, g, cfg, params, dev, card: str) -> float:
     """The launch-tooling phase (12b in the module docstring); returns its
     seconds."""
-    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     _, cpu_params = mp.model(g, mp.STUDENT, "cpu")
     for tier in ("staged", "fused"):
@@ -1671,21 +1701,23 @@ def run_dryrun(mp, g, cfg, params, dev, card: str) -> float:
               and on_cpu["kernel_launches"] == traced,
               f"step traffic {tier}: the card's trace equals the CPU's")
     del cpu_params
-    try:
-        rec = dryrun.run_cell("qwen3_8b", "decode_32k", device="cuda")
-    finally:
-        dryrun.destroy_world()
-    print(f"dry run qwen3_8b/decode_32k/1pod on cuda-typed fake devices: "
-          f"{rec['status']}, traced in {rec.get('trace_s')} s, per device "
-          f"{rec['per_device']['flops'] / 1e9:.3f} GFLOP, "
-          f"{rec['per_device']['bytes'] / 1e9:.3f} GB, collectives "
-          f"{rec['per_device']['collective_bytes'] / 1e9:.4f} GB "
-          f"{rec['per_device']['collectives_by_op']}, peak "
-          f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB (fits "
-          f"{rec['fits']}), bound {rec['roofline']['bound']}, folds "
-          f"{rec['folds']}, replicated {rec['replicated_ops']}; on {card}",
-          flush=True)
-    check(rec["status"] == "ok", "dry run qwen3_8b/decode_32k on cuda")
+    for arch, shape, two_pods in DRYRUN_CELLS:
+        rec, cache_gathers = _dryrun_cell(arch, shape, two_pods)
+        tag = f"{arch}/{shape}/{'2pod' if two_pods else '1pod'}"
+        print(f"dry run {tag} on cuda-typed fake devices: {rec['status']}, "
+              f"traced in {rec.get('trace_s')} s, per device "
+              f"{rec['per_device']['flops'] / 1e9:.3f} GFLOP, "
+              f"{rec['per_device']['bytes'] / 1e9:.3f} GB, collectives "
+              f"{rec['per_device']['collective_bytes'] / 1e9:.4f} GB, by "
+              f"kind {rec['per_device']['collectives_by_op']}, K/V cache "
+              f"shards all-gathered {len(cache_gathers)}, peak "
+              f"{rec['memory']['peak_bytes'] / 2**30:.2f} GiB (fits "
+              f"{rec['fits']}), bound {rec['roofline']['bound']}, folds "
+              f"{rec['folds']}, replicated {rec['replicated_ops']}; on "
+              f"{card}", flush=True)
+        check(rec["status"] == "ok", f"dry run {tag} on cuda")
+        check(not cache_gathers, f"dry run {tag}: no all-gather takes a "
+              "K/V cache leaf")
     took = time.perf_counter() - t0
     print(f"launch-tooling phase: {took:.1f} s (budget {DRYRUN_BUDGET_S} s)"
           f"; on {card}", flush=True)

@@ -416,6 +416,25 @@ def build_cell(arch: str, shape: str, *, multi_pod: bool = False,
                     for a, s in zip(args, in_specs)))
 
 
+def cache_gathers(cell, ops) -> list:
+    """The all-gathers in a decode cell's trace ``ops`` (a ``record``
+    trace's ``ops``) whose operand is a K/V cache leaf's shard, whole or
+    a layer's view of it, taken from the step's inputs: none when the
+    sequence-sharded caches stay in place (``distributed/partitioned``).
+    ``cell`` is ``build_cell``'s."""
+    shards = set()
+    if cell.kind == "decode":
+        specs = tree_mod.leaves(cell.in_specs[1]["caches"],
+                                is_leaf=shd._is_spec)
+        for (path, leaf), spec in zip(
+                tree_mod.flatten_with_path(cell.args[1]["caches"]), specs):
+            if path.endswith((".k", ".v")):
+                piece = shd.shard_shape(tuple(leaf.shape), spec, cell.mesh)
+                shards |= {piece, piece[1:]}
+    return [e for e in ops if e.get("coll") == "all_gather_into_tensor"
+            and e["in"][0][2] and tuple(e["in"][0][0]) in shards]
+
+
 def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
              save_hlo: str | None = None, override_cfg=None,
              extra_rules: dict | None = None, params_bf16: bool = False,

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed import partitioned
 from repro_torch.obs import optrace
 
 NEG_INF = -2.3819763e38  # max bf16-representable negative; avoids inf-inf NaNs
@@ -374,6 +375,18 @@ def decode_qkv(p: dict, cfg: AttnCfg, x: torch.Tensor, pos0, *,
     return q, k, v
 
 
+def _index_write(c: torch.Tensor, dim: int, index: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """``c.index_copy_(dim, index, new)`` in place (``new`` cast to
+    ``c``'s dtype); on a DTensor, each shard's local update, a cache split
+    over its slots written by the shard that holds the slot
+    (``partitioned.index_write``)."""
+    if type(c) is not torch.Tensor:
+        partitioned.index_write(c, dim, index, new)
+    else:
+        c.index_copy_(dim, index, new.to(c.dtype))
+
+
 def decode_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
                      cache: dict) -> tuple:
     """Single-token decode (S=1) against a full or ring KV cache, written in
@@ -391,36 +404,40 @@ def decode_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
     if "k_pos" in cache:  # ring cache
         W = ck.shape[1]
         slot = (pos0 % W).long().reshape(1)
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        cache["k_pos"].index_copy_(0, slot, pos0.reshape(1))
+        _index_write(ck, 1, slot, k)
+        _index_write(cv, 1, slot, v)
+        _index_write(cache["k_pos"], 0, slot, pos0.reshape(1))
         k_pos_b = cache["k_pos"][None, :]
         k_valid = cache["k_pos"] >= 0
     else:
         row = pos0.long().reshape(1)
-        ck.index_copy_(1, row, k.to(ck.dtype))
-        cv.index_copy_(1, row, v.to(cv.dtype))
+        _index_write(ck, 1, row, k)
+        _index_write(cv, 1, row, v)
         Sk = ck.shape[1]
         k_pos_b = torch.arange(Sk, dtype=torch.int32, device=x.device)[None]
         k_valid = k_pos_b[0] <= pos0
 
     g = h // kv
     qg = q.reshape(B, kv, g, hd)
-    if not cfg.cache_upcast:
-        # q and the weights rounded to the cache dtype; their products with
-        # the cache are exact in fp32 and accumulate there, as the
-        # reference's preferred_element_type=float32 einsums do
-        qg = qg.to(ck.dtype)
-    scores = torch.einsum("bngd,btnd->bngt", qg.float(),
-                          ck.float()) / math.sqrt(hd)
-    scores = _softcap(scores, cfg.softcap)
     bias = _mask_bias(positions, k_pos_b, cfg.window, True)[:, 0]  # (1, S_k)
-    scores = scores + bias[:, None, None, :]
-    scores = torch.where(k_valid[None, None, None, :], scores, NEG_INF)
-    attn = torch.softmax(scores, dim=-1)
-    if not cfg.cache_upcast:
-        attn = attn.to(cv.dtype).float()
-    out = torch.einsum("bngt,btnd->bngd", attn, cv.float())
+    if type(ck) is not torch.Tensor and partitioned.splits(ck, 1):
+        # a cache split over its slots: the softmax by partials
+        out = partitioned.decode_softmax(qg, ck, cv, bias, k_valid, cfg)
+    else:
+        if not cfg.cache_upcast:
+            # q and the weights rounded to the cache dtype; their products
+            # with the cache are exact in fp32 and accumulate there, as
+            # the reference's preferred_element_type=float32 einsums do
+            qg = qg.to(ck.dtype)
+        scores = torch.einsum("bngd,btnd->bngt", qg.float(),
+                              ck.float()) / math.sqrt(hd)
+        scores = _softcap(scores, cfg.softcap)
+        scores = scores + bias[:, None, None, :]
+        scores = torch.where(k_valid[None, None, None, :], scores, NEG_INF)
+        attn = torch.softmax(scores, dim=-1)
+        if not cfg.cache_upcast:
+            attn = attn.to(cv.dtype).float()
+        out = torch.einsum("bngt,btnd->bngd", attn, cv.float())
     cache["pos"].add_(1)
     return _out_proj(p, out.reshape(B, 1, h * hd), dt), cache
 
@@ -446,8 +463,8 @@ def pruned_decode_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
     Smax = ck.shape[1]
     q, knew, vnew = decode_qkv(p, cfg, x, pos0, biases=False)
     row = pos0.long().reshape(1)
-    ck.index_copy_(1, row, knew.to(ck.dtype))
-    cv.index_copy_(1, row, vnew.to(cv.dtype))
+    _index_write(ck, 1, row, knew)
+    _index_write(cv, 1, row, vnew)
 
     # metadata-only scores -> top-k index set (shared across batch/heads)
     k_pos = torch.arange(Smax, dtype=torch.int32, device=x.device)
@@ -460,19 +477,26 @@ def pruned_decode_attention(p: dict, cfg: AttnCfg, x: torch.Tensor,
     # weight exactly 0, so which of them is taken cannot change the output.
     idx = torch.topk(meta, keep).indices
 
-    k_sel = ck.index_select(1, idx)
-    v_sel = cv.index_select(1, idx)
-    pos_sel = k_pos.index_select(0, idx)
     g = h // kv
-    qg = q.reshape(B, kv, g, hd).to(k_sel.dtype)
-    s = torch.einsum("bngd,btnd->bngt", qg.float(),
-                     k_sel.float()) / math.sqrt(hd)
-    s = _softcap(s, cfg.softcap)
-    valid = pos_sel <= pos0
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    attn = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngt,btnd->bngd", attn.to(v_sel.dtype).float(),
-                       v_sel.float())
+    if type(ck) is not torch.Tensor and partitioned.splits(ck, 1):
+        # a cache split over its slots: each shard scores the kept slots
+        # it holds, the softmax by partials
+        valid = k_pos.index_select(0, idx) <= pos0
+        out = partitioned.pruned_decode_softmax(
+            q.reshape(B, kv, g, hd), ck, cv, idx, valid, cfg)
+    else:
+        k_sel = ck.index_select(1, idx)
+        v_sel = cv.index_select(1, idx)
+        pos_sel = k_pos.index_select(0, idx)
+        qg = q.reshape(B, kv, g, hd).to(k_sel.dtype)
+        s = torch.einsum("bngd,btnd->bngt", qg.float(),
+                         k_sel.float()) / math.sqrt(hd)
+        s = _softcap(s, cfg.softcap)
+        valid = pos_sel <= pos0
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        attn = torch.softmax(s, dim=-1)
+        out = torch.einsum("bngt,btnd->bngd", attn.to(v_sel.dtype).float(),
+                           v_sel.float())
     cache["pos"].add_(1)
     y = out.reshape(B, 1, h * hd).to(dt) @ p["wo"].to(dt)
     if "bo" in p:
@@ -662,8 +686,13 @@ def embed(p: dict, tokens: torch.Tensor, dtype=torch.bfloat16
     # gather, then cast: the same bits as the reference's cast-then-gather,
     # without casting the whole table every token. In bf16 the backward
     # sums a token's repeated rows in fp32, where the reference sums them
-    # in bf16 (tests/test_torch_lm_train_io.py holds it to a bf16 limit)
-    return p["embed"][tokens.long()].to(dtype)
+    # in bf16 (tests/test_torch_lm_train_io.py holds it to a bf16 limit).
+    # A table split over the vocab on ``model`` (a DTensor) is looked up
+    # without gathering it (``partitioned.embed``).
+    table = p["embed"]
+    if type(table) is not torch.Tensor and partitioned.embed_splits(table):
+        return partitioned.embed(table, tokens).to(dtype)
+    return table[tokens.long()].to(dtype)
 
 
 def init_unembed(generator: torch.Generator, d: int, vocab: int, device
@@ -683,8 +712,12 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _xent_sum(hi: torch.Tensor, ti: torch.Tensor, w: torch.Tensor
               ) -> torch.Tensor:
-    """Summed next-token cross-entropy of one sequence chunk, fp32."""
+    """Summed next-token cross-entropy of one sequence chunk, fp32. Logits
+    split over the vocab on ``model`` (a DTensor) take the vocab-parallel
+    form (``distributed/partitioned.xent_sum``)."""
     logits = (hi @ w.to(hi.dtype)).float()
+    if type(logits) is not torch.Tensor and partitioned.splits(logits, -1):
+        return partitioned.xent_sum(logits, ti)
     lse = torch.logsumexp(logits, dim=-1)
     # (B, c, 1) until the sum: over a vocab-sharded DTensor (the dry run)
     # the gathered column is a masked partial, reducible at its own shape

@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import partitioned
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init
@@ -161,7 +162,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
                 h0: torch.Tensor | None = None):
     """SSD scan. x (B,L,H,P) fp32; dt (B,L,H) >0; a (H,) <0;
-    b,c (B,L,G,N). Returns (y (B,L,H,P), h_final (B,H,P,N))."""
+    b,c (B,L,G,N). Returns (y (B,L,H,P), h_final (B,H,P,N)). DTensors
+    split over the sequence on ``model`` run the scan on a shard's heads
+    (``distributed/partitioned.ssd_chunked``)."""
+    if type(x) is not torch.Tensor and partitioned.ssd_splits(x, dt, b, c):
+        return partitioned.ssd_chunked(_ssd_scan, x, dt, a, b, c, chunk, h0)
+    return _ssd_scan(x, dt, a, b, c, chunk, h0)
+
+
+def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, chunk: int,
+              h0: torch.Tensor | None = None):
+    """``ssd_chunked`` on one device: the loop over chunks."""
     B, Lx, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     Q = min(chunk, Lx)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import partitioned
 from repro_torch.models.layers import dense_init, gelu
 from repro_torch.utils import round_up
 
@@ -53,20 +54,29 @@ def route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     return idx.to(torch.int32), probs
 
 
+def expert_ranks(flat_e: torch.Tensor, n_experts: int):
+    """flat_e (n,) int64 expert ids in flat (token, k) order -> (rank (n,)
+    of each assignment among the earlier ones to its expert, counts (E,)
+    assignments per expert)."""
+    n = flat_e.shape[0]
+    dev = flat_e.device
+    order = torch.sort(flat_e, stable=True).indices        # group by expert
+    sorted_e = flat_e[order]
+    # tokens per expert (bincount's, at a shape the ids cannot change)
+    counts = (flat_e[:, None] == torch.arange(n_experts, device=dev)).sum(0)
+    starts = torch.cumsum(counts, 0) - counts              # exclusive prefix
+    rank_sorted = torch.arange(n, device=dev) - starts[sorted_e]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    return rank, counts
+
+
 def build_dispatch(expert_idx: torch.Tensor, n_experts: int, cap: int):
     """expert_idx (T, k) -> (dispatch_tok (E, C) int32 with T as the
     out-of-range "empty" sentinel, keep (T, k) bool, rank (T, k) int32)."""
     T, k = expert_idx.shape
     dev = expert_idx.device
     flat_e = expert_idx.reshape(-1).long()                 # (T*k,)
-    order = torch.sort(flat_e, stable=True).indices        # group by expert
-    sorted_e = flat_e[order]
-    # rank within expert group
-    # tokens per expert (bincount's, at a shape the ids cannot change)
-    counts = (flat_e[:, None] == torch.arange(n_experts, device=dev)).sum(0)
-    starts = torch.cumsum(counts, 0) - counts              # exclusive prefix
-    rank_sorted = torch.arange(T * k, device=dev) - starts[sorted_e]
-    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    rank, _ = expert_ranks(flat_e, n_experts)
     keep = rank < cap
     # scatter token indices into the dispatch table; dropped -> row E
     # (discarded)
@@ -87,7 +97,13 @@ def _act(gate: torch.Tensor, act: str) -> torch.Tensor:
 def moe_ffn(p: dict, x: torch.Tensor, top_k: int, *,
             capacity_factor: float = 1.25, act: str = "silu"
             ) -> torch.Tensor:
-    """x (T, D) -> (T, D). See module docstring for the dataflow."""
+    """x (T, D) -> (T, D). See module docstring for the dataflow. Tokens
+    sharded over a mesh with the experts split over its ``model`` axis (a
+    DTensor) take the partitioned form, which moves each (token, k) row to
+    its expert by all-to-all (``distributed/partitioned.moe_ffn``)."""
+    if type(x) is not torch.Tensor and partitioned.moe_splits(p, x):
+        return partitioned.moe_ffn(p, x, top_k,
+                                   capacity_factor=capacity_factor, act=act)
     T, D = x.shape
     E = p["router"].shape[1]
     C = capacity(T, E, top_k, capacity_factor)
@@ -99,24 +115,37 @@ def moe_ffn(p: dict, x: torch.Tensor, top_k: int, *,
     # gather (E, C, D); the sentinel T reads an explicit zero pad row
     x_pad = torch.cat([x, torch.zeros((1, D), dtype=dt, device=x.device)])
     xd = x_pad[dispatch.long()]                            # (E, C, D)
+    out = experts(p, xd, act)
 
+    # combine: each (token, k) slot reads back its expert row and weights it
+    rows = out[expert_idx.reshape(-1).long(),
+               torch.where(keep.reshape(-1), rank.reshape(-1), 0).long()]
+    return combine(rows, probs, keep).to(dt)
+
+
+def experts(p: dict, xd: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFNs on their rows: xd (E, C, D) -> (E, C, D)."""
+    dt = xd.dtype
     gate = torch.einsum("ecd,edf->ecf", xd, p["w_gate"].to(dt))
     up = torch.einsum("ecd,edf->ecf", xd, p["w_up"].to(dt))
     hidden = _act(gate, act) * up
-    out = torch.einsum("ecf,efd->ecd", hidden, p["w_down"].to(dt))
+    return torch.einsum("ecf,efd->ecd", hidden, p["w_down"].to(dt))
 
-    # combine: each (token, k) slot reads back its expert row and weights it
-    flat_keep = keep.reshape(-1)
-    flat_w = probs.reshape(-1) * flat_keep
-    rows = out[expert_idx.reshape(-1).long(),
-               torch.where(flat_keep, rank.reshape(-1), 0).long()]
-    contrib = (rows.float() * flat_w[:, None]).reshape(T, top_k, D)
+
+def combine(rows: torch.Tensor, probs: torch.Tensor, keep: torch.Tensor
+            ) -> torch.Tensor:
+    """Each token's k expert rows (T*k, D), weighted by its routing probs
+    and summed in slot order from zero: (T, D) fp32."""
+    T, top_k = keep.shape
+    flat_w = probs.reshape(-1) * keep.reshape(-1)
+    contrib = (rows.float() * flat_w[:, None]).reshape(T, top_k, -1)
     # a dropped slot adds nothing (the reference sends it to a discarded row)
     contrib = torch.where(keep[..., None], contrib, 0.0)
-    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    y = torch.zeros((T, contrib.shape[-1]), dtype=torch.float32,
+                    device=rows.device)
     for j in range(top_k):
         y = y + contrib[:, j]
-    return y.to(dt)
+    return y
 
 
 def moe_ffn_ref(p: dict, x: torch.Tensor, top_k: int, *,

@@ -17,6 +17,7 @@ are ``cpu``-typed fake devices; the process group is destroyed after each
 test.
 """
 import dataclasses
+import gzip
 import json
 import os
 import subprocess
@@ -202,3 +203,33 @@ def test_the_example_runs(procs):
     assert rec["multi_pod"] is True and rec["status"] == "ok"
     assert rec["n_chips"] == 512
     assert "collectives:" in out
+
+
+def _trace(arch, shape, multi_pod, tmp_path):
+    """A smoke-width cell's ``build_cell`` and its trace's ops."""
+    cfg = configs.get(arch).smoke_config()
+    path = tmp_path / f"{arch}_{shape}.trace.json.gz"
+    rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                          override_cfg=cfg, device="cpu", save_hlo=str(path))
+    assert rec["status"] == "ok"
+    with gzip.open(path, "rt") as f:
+        ops = json.load(f)["ops"]
+    dryrun.destroy_world()
+    return dryrun.build_cell(arch, shape, multi_pod=multi_pod,
+                             override_cfg=cfg), ops
+
+
+def test_no_all_gather_takes_a_cache_leaf_or_a_logits_chunk(tmp_path):
+    """The partitioned forms keep gemma3_12b's sequence-sharded K/V caches
+    in place in ``decode_32k`` (2 pods): no all-gather takes a cache
+    leaf's shard, whole or a layer's view of it; and in qwen3_8b's
+    ``train_4k`` no all-gather takes a loss chunk's vocab-sharded logits
+    (B / 16, loss_chunk, V / 16)."""
+    cell, ops = _trace("gemma3_12b", "decode_32k", True, tmp_path)
+    assert any(e.get("coll") == "all_gather_into_tensor" for e in ops)
+    assert dryrun.cache_gathers(cell, ops) == []
+
+    cell, ops = _trace("qwen3_8b", "train_4k", False, tmp_path)
+    chunk = [256 // 16, cell.cfg.loss_chunk, cell.cfg.vocab // 16]
+    assert not [e for e in ops if e.get("coll") == "all_gather_into_tensor"
+                and e["in"][0][:2] == [chunk, "f32"]]

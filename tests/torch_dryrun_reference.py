@@ -26,11 +26,15 @@ What is held, for each cell:
   only the port issues is stated as its share of the reference's total
   collective bytes.
 
-The port's collectives are DTensor's redistributions, not GSPMD's: the
-ratios below are that difference, measured, each with its cause. Meshes
-are ``cpu``-typed fake devices; there DTensor moves ``Shard(i)`` to
+The port's collectives are DTensor's redistributions, and at the models'
+sharded sites the explicit collectives of their partitioned forms
+(``repro_torch/distributed/partitioned.py``: the SSD loop over heads, the
+decode softmax by partials, the vocab-parallel cross-entropy and
+embedding lookup, the MoE rows by all-to-all); the ratios below are what
+is left of the difference with GSPMD's, measured, each with its cause.
+Meshes are ``cpu``-typed fake devices; there DTensor moves ``Shard(i)`` to
 ``Shard(j)`` by all-gather and chunk (torch's CPU process groups have no
-all-to-all), so the port's CPU dry run issues no all-to-all.
+all-to-all), so the port's all-to-alls are the forms' own.
 """
 import json
 import os
@@ -56,70 +60,80 @@ KINDS = {"all_gather_into_tensor": "all-gather",
 PRODUCT_RTOL = 0.02
 COLL_RTOL = 0.05
 
-_NO_ALL_TO_ALL = ("DTensor moves Shard(i) to Shard(j) by all-gather and "
-                  "chunk on a cpu-typed mesh")
-_NO_PERMUTE = "DTensor issues no collective-permute"
+_NO_PERMUTE = "the port issues no collective-permute"
 _SEQ_GATHER = ("DTensor's strategies keep the sequence-sharded activations "
                "and gather them whole where an op needs the sequence")
 _RS_BACKWARD = ("DTensor turns a Partial product into its Shard layout by "
                 "reduce-scatter, where GSPMD all-reduces it")
+_EMBED = ("the embedding table moves from its vocab split to a split of "
+          "its columns by all-to-all (partitioned.embed: a training step "
+          "has more token rows than a shard has table rows)")
 
 #: (arch, shape, multi_pod) -> {kind: (port / reference, cause)}; a kind
 #: the reference lacks: (port / the reference's total, cause)
 COLLECTIVES = {
     ("qwen3_8b", "train_4k", False): {
-        "all-gather": (1.3055, "both gather the sequence-sharded hidden "
-                       "state in every loss chunk (2.15 GB each); the port "
-                       "also gathers each chunk's vocab-sharded logits for "
-                       "logsumexp (0.27 GB), GSPMD all-reduces a partial "
-                       "max and sum; " + _SEQ_GATHER),
-        "all-reduce": (0.0112, "GSPMD all-reduces the loss chunks' partial "
-                       "products and their max and sum; " + _RS_BACKWARD),
-        "reduce-scatter": (0.1499, _RS_BACKWARD)},
+        "all-gather": (1.1795, "both gather the sequence-sharded hidden "
+                       "state in every loss chunk (2.15 GB each; the "
+                       "chunk's vocab-sharded logits are not gathered: "
+                       "partitioned.xent_sum); the port also gathers the "
+                       "attention projections' inputs (0.34 GB); "
+                       + _SEQ_GATHER),
+        "all-reduce": (0.0772, "the loss chunks' max, sum and gold logit "
+                       "(partitioned.xent_sum); GSPMD also all-reduces the "
+                       "loss chunks' partial products; " + _RS_BACKWARD),
+        "all-to-all": (6.96e-6, _EMBED),
+        "reduce-scatter": (0.1498, _RS_BACKWARD)},
     ("grok_1_314b", "train_4k", False): {
-        "all-gather": (2.6166, "the MoE dispatch and combine tensors "
-                       "(E x capacity rows) and the experts' activations "
-                       "are gathered whole where GSPMD moves them by "
-                       "all-to-all and collective-permute; " + _SEQ_GATHER),
-        "all-reduce": (0.0633, _RS_BACKWARD),
-        "all-to-all": (0.0, _NO_ALL_TO_ALL),
+        "all-gather": (0.3907, "the MoE rows move by all-to-all "
+                       "(partitioned.moe_ffn), where GSPMD gathers the "
+                       "dispatch tables' rows and their cotangents; both "
+                       "gather the loss chunks' hidden state; "
+                       + _SEQ_GATHER),
+        "all-reduce": (0.0010, "the port's MoE output is a partial sum "
+                       "over the F columns, reduce-scattered; "
+                       + _RS_BACKWARD),
+        "all-to-all": (1.8845, "each (token, k) row goes to the data shard "
+                       "of its capacity row and back (T/16 x k rows of D "
+                       "a device, in the forward, its recompute and the "
+                       "backward); GSPMD's all-to-alls move the tokens' "
+                       "columns and the routing tables"),
         "collective-permute": (0.0, _NO_PERMUTE),
-        "reduce-scatter": (0.1797, _RS_BACKWARD)},
+        "reduce-scatter": (0.0390, _RS_BACKWARD)},
     ("gemma3_12b", "decode_32k", True): {
-        "all-gather": (636.1791, "the global layer's sequence-sharded K/V "
-                       "cache (2 x 8.4 MB) and its scores (2.1 MB) are "
-                       "gathered for the softmax over the sharded keys; "
-                       "GSPMD keeps the cache in place and all-reduces a "
-                       "partial max, sum and P.V"),
-        "all-reduce": (0.0064, "the softmax's partials are not all-reduced: "
-                       "the port gathers the cache instead"),
-        "all-to-all": (0.0, _NO_ALL_TO_ALL),
+        "all-gather": (1.4670, "q, k and v of the new token gathered over "
+                       "the kv heads (GSPMD gathers q for the scores and "
+                       "the new k/v rows for the cache write as well); "
+                       "the K/V caches stay in place"),
+        "all-reduce": (0.2177, "the softmax's partial max, sum and P.V "
+                       "(partitioned.decode_softmax), as GSPMD's; GSPMD "
+                       "also all-reduces the projections' and the norms' "
+                       "partials and the embedding's masked rows, which "
+                       "the port reduce-scatters or does not make"),
+        "all-to-all": (0.0, "a decode step's few token rows are looked "
+                       "up shard by shard and reduce-scattered "
+                       "(partitioned.embed), not moved by all-to-all"),
         "collective-permute": (0.0, _NO_PERMUTE),
-        "reduce-scatter": (0.2839, _RS_BACKWARD)},
+        "reduce-scatter": (0.2050, "the embedding's looked-up rows "
+                           "(partitioned.embed); " + _RS_BACKWARD)},
     ("mamba2_130m", "prefill_32k", False): {
-        "all-gather": (6401.1483, "each SSD chunk is sliced out of the "
-                       "sequence-sharded x, B, C and dt, which DTensor "
-                       "gathers whole in every one of the 2,048 chunk "
-                       "iterations (214.7 GB of 214.8); GSPMD splits the "
-                       "scan body over the model axis and passes states "
-                       "by collective-permute"),
+        "all-gather": (3.0250, "the group-shared B and C taken whole for "
+                       "the SSD loop over heads, as GSPMD takes them "
+                       "(33.6 MB); the port also gathers the gated output "
+                       "for out_proj (67.1 MB); " + _SEQ_GATHER),
         "all-reduce": (0.0, "the projections' partials go by reduce-scatter"
                        " (" + _RS_BACKWARD + ")"),
-        "all-to-all": (0.0, _NO_ALL_TO_ALL),
+        "all-to-all": (0.7090, "x and dt to the head split and y back, "
+                       "once a layer (partitioned.ssd_chunked); GSPMD "
+                       "passes the chunk states by collective-permute"),
         "collective-permute": (0.0, _NO_PERMUTE),
         "reduce-scatter": (0.9343, _RS_BACKWARD)},
 }
 
 #: a cell whose products differ: the fold site, the reference's loop
 #: multiplier of the same loop, port / reference there, and the cause
-PRODUCTS_NAMED = {
-    ("mamba2_130m", "prefill_32k", False): (
-        "ssd_chunk", 4096.0, 12.4444,
-        "the port runs every SSD chunk on each device of the model axis "
-        "(the chunks' slices gathered whole, above); GSPMD splits the scan "
-        "body 16 ways, the group-shared B.C products replicated: 12.44 x "
-        "less, not 16 x"),
-}
+#: (none now: the SSD loop runs on a shard's heads, as GSPMD's does)
+PRODUCTS_NAMED: dict = {}
 
 REF_SCRIPT = r"""
 import gzip, json, os, sys
